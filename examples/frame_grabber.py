@@ -32,6 +32,9 @@ def main():
                     metavar=("X", "Y", "Z", "YAW"),
                     help="camera pose: translation mm + yaw rad")
     args = ap.parse_args()
+    from icp_tpu.runtime.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

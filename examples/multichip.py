@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """Multi-chip / multi-host registration demo.
 
-Single-host: builds a (dp, mp) mesh over the local devices and runs the
-sharded registration. Multi-host: launch one copy per host with
-JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID set (or on
-Cloud TPU pods, with no env at all) — dp spans hosts over DCN, mp stays on
-ICI.
+Single-host: builds a (dp, mp) mesh over the local GPUs (joined all to
+all by NVLink on an H100 host) and runs the sharded registration.
+Multi-host: launch one copy per host with JAX_COORDINATOR_ADDRESS /
+JAX_NUM_PROCESSES / JAX_PROCESS_ID set — dp spans hosts, mp is best kept
+within one host.
 
 To try the collective program without hardware:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -38,6 +38,10 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+
+    from icp_tpu.runtime.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

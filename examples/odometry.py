@@ -25,6 +25,9 @@ def main():
                     help="use the point-to-plane objective (sub-mm mode)")
     ap.add_argument("--out-dir", default="/tmp/icp_tpu_odometry")
     args = ap.parse_args()
+    from icp_tpu.runtime.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax
 

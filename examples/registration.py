@@ -33,6 +33,9 @@ def main():
     ap.add_argument("--robust-delta", type=float, default=100.0,
                     help="robust kernel scale, blended-distance units (mm)")
     args = ap.parse_args()
+    from icp_tpu.runtime.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

@@ -62,6 +62,9 @@ def main():
                          "the reference's T/R/Q keys when a display "
                          "exists, PNG frames under --out-dir otherwise)")
     args = ap.parse_args()
+    from icp_tpu.runtime.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from icp_tpu import ICPConfig, ICPParams
     from icp_tpu.icp.pipeline import ICPStepByStep

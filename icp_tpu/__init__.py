@@ -1,4 +1,4 @@
-"""icp_tpu — TPU-native photogeometric ICP / RGB-D SLAM framework.
+"""icp_tpu — photogeometric ICP / RGB-D SLAM framework for the GPU.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of nlamprian/ICP
 (OpenCL photogeometric Iterative Closest Point for real-time RGB-D
@@ -11,7 +11,7 @@ Points are 8-D: 4-D homogeneous geometry (x, y, z, 1) + 4-D photometric
 Layer map (vs the reference's six layers, see SURVEY.md §1):
 
     reference L0 CLEnv/queues          -> icp_tpu.runtime  (mesh/device setup, timing)
-    reference L1 OpenCL kernels        -> icp_tpu.ops + icp_tpu.kernels (XLA + Pallas)
+    reference L1 OpenCL kernels        -> icp_tpu.ops + icp_tpu.rbc (XLA) + icp_tpu.kernels (Pallas-Triton)
     reference L2 kernel classes        -> jitted functions in icp_tpu.ops
     reference RBC external dep         -> icp_tpu.rbc (construct/search)
     reference L3 ICPStep/ICP           -> icp_tpu.icp (step + lax.while_loop driver)

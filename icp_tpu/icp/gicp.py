@@ -20,7 +20,7 @@ Zero normals degrade C to the identity (isotropic), so the objective
 reduces to half-weighted point-to-point on unstructured data — no special
 casing needed for invalid-normal rows.
 
-TPU mapping: everything is batched (n, 3, 3) / (n, 3, 6) elementwise work
+Device mapping: everything is batched (n, 3, 3) / (n, 3, 6) elementwise work
 plus three einsum contractions; the 3x3 inverse is a closed-form adjugate
 (no per-point LU), and the 6x6 solve is replicated-tiny. All contractions
 run at Precision.HIGHEST (bf16 default would drown sub-0.01 mm steps).

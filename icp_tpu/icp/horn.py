@@ -58,20 +58,21 @@ _POWER_SQUARINGS = 8  # N^(2^8) = 256 effective power iterations
 
 def solve_rotation_power(S9: jnp.ndarray) -> jnp.ndarray:
     """Dominant-most-positive-eigenvector quaternion via the power method,
-    TPU-shaped.
+    shaped for an accelerator.
 
     The reference runs a scalar fixed-point loop of normalize(N x) steps
     (~56 iterations) with a shift-and-retry when the dominant-magnitude
     eigenvalue is negative (kernels/icp_kernels.cl:1001-1037). A sequential
-    4-vector loop is the worst shape for a TPU (each tiny op pays fixed VPU
-    latency; ~0.3 ms/solve measured), so the same quantity is computed as:
+    4-vector loop is the worst shape for an accelerator (each tiny op pays
+    a fixed launch or pipeline latency), so the same quantity is computed
+    as:
 
       1. shift N' = N + r I with r = the Gershgorin bound max_i sum_j |N_ij|
          (>= -lambda_min), making every eigenvalue nonnegative — the
          most-POSITIVE eigenvalue of N becomes the dominant one by
          construction, eliminating the reference's data-dependent retry;
       2. 8 normalized matrix squarings: M = (N'/|N'|)^(2^8) — equivalent to
-         256 power iterations, in 8 unrolled 4x4 matmuls (~30 us);
+         256 power iterations, in 8 unrolled 4x4 matmuls;
       3. q = normalize(M @ ones(4)), the reference's starting vector.
 
     Convergence is strictly stronger than the reference's (ratio^256 vs

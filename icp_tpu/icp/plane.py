@@ -16,8 +16,8 @@ iteration (standard small-angle form: R m ~ m + omega x m):
     J_i = [ n_i ;  m_i x n_i ]           (d/dt ; d/domega)
     (sum w J J^T) [t; omega] = -(sum w J r)
 
-The 6x6 solve is tiny; the row reductions are one (6, m) x (m, 6) MXU
-matmul. Scale is not part of this objective (s_k = 1).
+The 6x6 solve is tiny; the row reductions are one (6, m) x (m, 6)
+product. Scale is not part of this objective (s_k = 1).
 """
 
 from __future__ import annotations

@@ -54,7 +54,7 @@ def icp_run(moving8: jnp.ndarray, target: Union[RBCIndex, jnp.ndarray],
     # The moving cloud's normals (symmetric-plane / GICP side channel) are
     # loop-invariant: estimate them ONCE here, not in every body iteration
     # (XLA does not hoist the kNN estimator's eigh/map out of the loop —
-    # recomputing it in-body costs ~1 ms x iterations at 16k points).
+    # recomputing it in-body would repeat it every iteration).
     if (config.objective is Objective.GICP
             or (config.objective is Objective.PLANE
                 and config.plane_symmetric)):
@@ -66,12 +66,10 @@ def icp_run(moving8: jnp.ndarray, target: Union[RBCIndex, jnp.ndarray],
 
     # The convergence test runs INSIDE the body (fused into the iteration's
     # epilogue) and rides the carry as a boolean, so the while_loop's cond
-    # is pure scalar logic on carried values. Evaluating converged() in the
-    # cond instead costs ~70 us/iteration on a v5e — the qangle/norm/compare
-    # chain becomes its own run of tiny kernel launches between iterations
-    # (measured 0.36 vs 0.29 ms/iteration, interleaved A/B). Semantics are
-    # identical: the flag is computed from exactly the state the cond would
-    # have tested.
+    # is pure scalar logic on carried values. Evaluated in the cond instead,
+    # the qangle/norm/compare chain becomes its own run of tiny kernel
+    # launches between iterations. Semantics are identical: the flag is
+    # computed from exactly the state the cond would have tested.
     def cond(carry):
         s, done = carry
         return jnp.logical_and(s.k < config.max_iterations,
@@ -84,13 +82,10 @@ def icp_run(moving8: jnp.ndarray, target: Union[RBCIndex, jnp.ndarray],
                       moving_normals=mnormals)
         return ns, converged(ns, params)
 
-    # NOTE (measured, do not resurrect without a same-session A/B): a
-    # warm-start grouping cache in the loop carry (skip the grouping
-    # sort + gathers via lax.cond when the rep assignments are unchanged)
-    # LOSES on hardware at both the flagship and 4x shapes (+9% / +58%
-    # per-iteration): the cond + big carried tables defeat XLA's buffer
-    # donation and pipeline overlap, costing more than the ~0.05-0.4 ms
-    # grouping it saves.
+    # NOTE: a warm-start grouping cache in the loop carry (skip the
+    # grouping sort + gathers via lax.cond when the rep assignments are
+    # unchanged) lost on the previous accelerator: the cond + big carried
+    # tables defeated buffer donation. Not measured on the GPU.
     final, _ = jax.lax.while_loop(cond, body, (state, jnp.bool_(False)))
     return final
 
@@ -152,8 +147,8 @@ def register_batch(fixed8: jnp.ndarray, moving8: jnp.ndarray,
     converged pairs frozen by the batching rule's select — so each lane's
     result (including its iteration count ``k``) is exactly the
     single-pair result. Wall-clock is set by the slowest pair, but the
-    dispatch/bandwidth amortization across lanes is what a single TPU chip
-    wants for throughput serving.
+    dispatch amortization across lanes is what throughput serving on one
+    card wants.
 
     Args:
       fixed8: (B, m, 8) fixed landmark sets.

@@ -23,7 +23,6 @@ import jax.numpy as jnp
 
 from icp_tpu.icp.horn import solve_step_transform
 from icp_tpu.icp.plane import solve_point_to_plane
-from icp_tpu.kernels.fused_gn import gn_system_from_V
 from icp_tpu.icp.quaternion import qmul, qnormalize, qrotate, transform_points
 from icp_tpu.icp.state import ICPState
 from icp_tpu.ops.distance import nearest_neighbor_brute
@@ -37,6 +36,7 @@ from icp_tpu.ops.moments import (
     s_matrix,
 )
 from icp_tpu.rbc.construct import RBCIndex
+from icp_tpu.rbc.fused_gn import gn_system_from_V
 from icp_tpu.rbc.search import rbc_point_moments, rbc_search_grouped
 from icp_tpu.runtime.config import (
     Correspondence,
@@ -72,12 +72,8 @@ def _find_correspondences(tm: jnp.ndarray, target: Union[RBCIndex, jnp.ndarray],
     want_normals = config.needs_normals
     if config.correspondence is Correspondence.RBC:
         assert isinstance(target, RBCIndex), "RBC mode needs an RBCIndex"
-        # Pallas kernels compile only on TPU; the CPU test backend takes the
-        # identical-semantics XLA path (backend is known at trace time).
-        use_pallas = config.use_pallas and jax.default_backend() == "tpu"
         res = rbc_search_grouped(target, tm, params.alpha,
                                  config.query_capacity,
-                                 use_pallas=use_pallas,
                                  with_normals=want_normals,
                                  extra_rows=extra_rows)
         n_rows = res.queries_g.shape[0] * res.queries_g.shape[1]
@@ -86,12 +82,7 @@ def _find_correspondences(tm: jnp.ndarray, target: Union[RBCIndex, jnp.ndarray],
                 flat(res.valid), flat(res.matched_normals),
                 flat(res.extra_g))
     db = target.db if hasattr(target, "db") else target
-    if config.use_pallas and jax.default_backend() == "tpu":
-        from icp_tpu.kernels.brute_nn import nearest_neighbor_brute_pallas
-
-        nn_idx, nn_dist = nearest_neighbor_brute_pallas(tm, db, params.alpha)
-    else:
-        nn_idx, nn_dist = nearest_neighbor_brute(tm, db, params.alpha)
+    nn_idx, nn_dist = nearest_neighbor_brute(tm, db, params.alpha)
     if want_normals:
         assert hasattr(target, "normals"), \
             "normal-consuming objectives need a target carrying normals"
@@ -119,18 +110,13 @@ def icp_step(state: ICPState, moving8: jnp.ndarray,
       config: static configuration.
       moving_normals: optional (m, 3) precomputed moving-cloud normals (the
         symmetric-plane / GICP side channel). They are loop-invariant —
-        loop drivers hoist the estimation (kNN normals cost ~1 ms per
-        16k-point frame) and pass them here; None recomputes in-step
-        (direct single-step callers).
+        loop callers hoist the estimation and pass them here; None
+        recomputes in-step (direct single-step callers).
     """
-    use_pallas = config.use_pallas and jax.default_backend() == "tpu"
-
     # Fast path (the production POINT pipeline): transform + rep assignment
     # + grouping + per-bin search + weighting + the full statistical tail,
-    # fused into two Pallas passes emitting per-bin 8x8 moment matrices —
-    # no per-point tensor returns to HBM after the grouping (see
-    # icp_tpu.kernels.fused_step). PLANE/GICP need per-pair Jacobian rows,
-    # so they take the grouped-search path below.
+    # reduced to per-bin 8x8 moment matrices (icp_tpu.rbc.fused_point; the
+    # two searches are GPU kernels on the card).
     if (config.fused_point
             and config.correspondence is Correspondence.RBC
             and config.objective is Objective.POINT):
@@ -139,7 +125,6 @@ def icp_step(state: ICPState, moving8: jnp.ndarray,
             target, moving8, state.q, state.t, state.s,
             params.alpha, params.c, config.query_capacity,
             weighted=config.weighting is Weighting.WEIGHTED,
-            use_pallas=use_pallas,
             robust=config.robust.value,
             robust_delta=params.robust_delta,
             robust_adaptive=config.robust_adaptive)
@@ -152,10 +137,10 @@ def icp_step(state: ICPState, moving8: jnp.ndarray,
         return ICPState(q=q, t=t, s=s, qk=qk, tk=tk, sk=sk, k=state.k + 1)
 
     # Fast path for the normal-consuming objectives: same two-pass fused
-    # pipeline as POINT, with the whole Gauss-Newton system built in-kernel
-    # as per-bin 8x8 moments (kernels/fused_gn.py). Adaptive robust scale
-    # (which needs the per-pair residual median BEFORE the weighting)
-    # rides a d2-only extra pass (rbc_min_dists_grouped).
+    # pipeline as POINT, with the whole Gauss-Newton system built as
+    # per-bin 8x8 moments (rbc/fused_gn.py). Adaptive robust scale (which
+    # needs the per-pair residual median BEFORE the weighting) rides a
+    # distance-only extra pass (rbc_min_dists_grouped).
     if (config.fused_gn
             and config.correspondence is Correspondence.RBC
             and config.objective in (Objective.PLANE, Objective.GICP)):
@@ -184,7 +169,7 @@ def icp_step(state: ICPState, moving8: jnp.ndarray,
             target, moving8, state.q, state.t, state.s, params.alpha,
             config.query_capacity, mode=mode,
             weighted=config.weighting is Weighting.WEIGHTED,
-            use_pallas=use_pallas, robust=config.robust.value,
+            robust=config.robust.value,
             robust_delta=params.robust_delta,
             robust_adaptive=config.robust_adaptive,
             gicp_eps=params.gicp_epsilon, mnormals_rot=mnormals_rot)
@@ -204,8 +189,7 @@ def icp_step(state: ICPState, moving8: jnp.ndarray,
     # at exactly t, not 0, so checking transformed geometry only works on
     # the first iteration. The flag rides in the query vector's lane 7 (the
     # photometric homogeneous slot, metric weight 0 — free transport through
-    # every grouping/gather; a separate (m, 1) array pads to 128 lanes on
-    # TPU and costs ~0.2 ms/iteration in gathers).
+    # every grouping/gather, no separate (m, 1) array to group).
     mv_valid = (jnp.sum(jnp.abs(moving8[..., :3]), axis=-1) > 0).astype(
         moving8.dtype)
     tm = tm.at[:, 7].set(mv_valid)

@@ -4,8 +4,8 @@ These replace the reference's two-phase local-memory reduction kernels
 (``icpComputeReduceWeights``, ``icpMean``, ``icpMean_Weighted``, ``icpGMean``,
 ``icpSubtractMean``, ``icpSijProducts[_Weighted]``, reference
 kernels/icp_kernels.cl:138-743) with fused XLA reductions. The
-cross-covariance is formulated as a (3, m) x (m, 3) matmul so it runs on the
-MXU, and every function takes an optional validity mask so the same code
+cross-covariance is formulated as a (3, m) x (m, 3) product, and every
+function takes an optional validity mask so the same code
 serves the padded RBC path and sharded execution (where each shard reduces
 its slice and the partials are ``psum``-ed — see icp_tpu.parallel).
 """
@@ -109,8 +109,7 @@ def masked_median_sharded(x: jnp.ndarray, mask: Optional[jnp.ndarray],
          locates the global rank k = (count-1)//2 to within
          (hi - lo) / bins — sub-percent of the local-median spread.
 
-    The histogram is built as a one-hot reduction (MXU-friendly), not a
-    scatter. Exact (returns the shared value) when every shard's local
+    The histogram is built as a one-hot reduction, not a scatter. Exact (returns the shared value) when every shard's local
     median agrees; returns 0 when no shard has a valid element.
     """
     x = x.reshape(-1)
@@ -156,7 +155,7 @@ def adaptive_robust_delta_sharded(d2: jnp.ndarray,
 def masked_weight_sum(weights: jnp.ndarray,
                       mask: Optional[jnp.ndarray] = None) -> jnp.ndarray:
     """Sum of weights (the reference promotes to f64 in ``reduce_sum_fd``;
-    XLA:TPU accumulates f32 with pairwise trees, which is comparably safe for
+    XLA accumulates f32 with tree reductions, which is comparably safe for
     n = 16384)."""
     if mask is not None:
         weights = jnp.where(mask, weights, 0.0)
@@ -247,7 +246,7 @@ def s_matrix(dev_m: jnp.ndarray, dev_f: jnp.ndarray, c,
     The ``c`` factor (default 1e-6) guards f32 range on millimeter-scale
     data; eigenvectors are unchanged and s_k = sqrt(S9/S10) cancels it.
 
-    TPU-first: the 3x3 block is one (3, m) x (m, 3) matmul on the MXU.
+    The 3x3 block is one (3, m) x (m, 3) product.
 
     Args:
       dev_m: (n, 3) moving-set deviations.
@@ -267,7 +266,7 @@ def s_matrix(dev_m: jnp.ndarray, dev_f: jnp.ndarray, c,
     else:
         w = None
 
-    hi = jax.lax.Precision.HIGHEST  # full-f32 MXU passes; bf16 would lose
+    hi = jax.lax.Precision.HIGHEST  # full f32; bf16 or TF32 would lose
     # the small cross-covariance signal of nearly-converged iterations.
     if w is None:
         S3 = jnp.dot(cm.T, cf, precision=hi)  # S3[i, j] = sum m_i f_j

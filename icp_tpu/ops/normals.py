@@ -8,9 +8,10 @@ extensions over the reference, which is point-to-point only):
   ops.sampling.get_landmarks): central differences of grid neighbors,
   O(m) elementwise work, no neighborhood search.
 * :func:`knn_normals` — UNORGANIZED clouds (LiDAR sweeps, merged maps):
-  PCA of each point's geometric k-nearest neighbors. TPU shape: blocked
-  (block, m) distance matmuls + ``top_k`` + one batched 3x3 ``eigh``;
-  runs once per frame at index-build time, not per iteration.
+  PCA of each point's geometric k-nearest neighbors: blocked (block, m)
+  distance products + ``top_k`` + one batched 3x3 ``eigh``; runs once
+  per frame at index-build time, not per iteration.
+  :func:`knn_normals_rbc` is its RBC-accelerated form for large clouds.
 
 ``normals_for`` dispatches between them (``ICPConfig.normal_mode``).
 """
@@ -22,6 +23,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from icp_tpu.ops.distance import dot3
 from icp_tpu.ops.sampling import LM_GRID
 
 
@@ -69,9 +71,9 @@ def knn_normals(points8: jnp.ndarray, k: int = 16,
     the smallest-eigenvalue eigenvector of the neighborhood covariance,
     orient toward the sensor origin (n . p < 0).
 
-    TPU shape: the m x m distance matrix never materializes — queries go
-    through in (block, m) strips (``lax.map``), each one MXU matmul +
-    ``top_k``; the eigensolve is one batched (m, 3, 3) ``eigh``.
+    The m x m distance matrix never materializes — queries go through in
+    (block, m) strips (``lax.map``), each one product + ``top_k``; the
+    eigensolve is one batched (m, 3, 3) ``eigh``.
 
     Args:
       points8: (m, 8) cloud; invalid (zero-geometry) points get zero
@@ -114,7 +116,7 @@ def _morton_order(p: jnp.ndarray) -> jnp.ndarray:
     """(m,) permutation sorting points by 3-D Morton (z-order) code.
 
     10 bits per axis over the cloud's bounding box; the classic
-    bit-spreading ladder, all int32 VPU work + one sort.
+    bit-spreading ladder, all int32 elementwise work + one sort.
     """
     lo = jnp.min(p, axis=0)
     hi = jnp.max(p, axis=0)
@@ -138,13 +140,10 @@ def _smallest_eigvec3_components(a00, a01, a02, a11, a12, a22):
     batches, fully COMPONENT-WISE.
 
     Eberly's trigonometric eigenvalue form + cross-product null-space
-    extraction — pure elementwise VPU work, no QR iterations. Everything
-    stays in the six scalar component arrays: any (..., 3)/(.., 3, 3)
-    intermediate tiles its minor dim to 128 lanes in HBM, which made the
-    stacked form of this solve cost 29 ms at 262k neighborhoods (268 MB
-    per intermediate); the component form is sub-ms. Ill-conditioned
-    cases (isotropic scatter, where the normal is meaningless anyway)
-    fall back to +z.
+    extraction — pure elementwise work, no QR iterations, which XLA fuses
+    into a few passes over the six scalar component arrays.
+    Ill-conditioned cases (isotropic scatter, where the normal is
+    meaningless anyway) fall back to +z.
 
     Args:
       a00..a22: (...,) unique components of symmetric PSD matrices.
@@ -210,15 +209,15 @@ def knn_normals_rbc(points8: jnp.ndarray, k: int = 16, n_r: int = 0,
                     multi_assign: int = 2, chunk: int = 128) -> jnp.ndarray:
     """RBC-accelerated PCA normals for LARGE unorganized clouds.
 
-    :func:`knn_normals` is O(m^2): blocked (block, m) distance matmuls put
-    a hard scale cap on the "LiDAR sweep" claim (~57 ms/frame at 128k
-    points). This estimator reuses the repo's Random-Ball-Cover idiom
+    :func:`knn_normals` is O(m^2): its blocked (block, m) distance
+    products cap the cloud size it can serve per frame. This estimator
+    reuses the repo's Random-Ball-Cover idiom
     (rbc/construct.py — the same structure the reference pulls in
     precisely to kill O(n^2) search, reference external/RandomBallCover,
     SURVEY.md §2.5) on the GEOMETRIC-only metric:
 
       1. representatives = strided sample; each point's top-``multi_assign``
-         nearest reps via chunked (block, n_r) MXU matmuls (the full
+         nearest reps via chunked (block, n_r) products (the full
          (m, n_r) score matrix never materializes);
       2. database side: every point enters the bins of its ``multi_assign``
          nearest reps — overlapping balls, so a query's own bin contains
@@ -228,10 +227,10 @@ def knn_normals_rbc(points8: jnp.ndarray, k: int = 16, n_r: int = 0,
          sort, no scatters). Queries and database are the SAME cloud, so
          the first-choice grouping is built once and serves both sides;
       4. per bin: (cq, cb) distances, the k-th smallest distance per query
-         via ``top_k`` VALUES (no index gathers), then the kNN covariance
-         as two masked MXU matmuls — C = W b b^T - (W b)(W b)^T / k with
-         W the 0/1 "within k-th distance" matrix. No neighbor gather ever
-         happens;
+         by bisection on its VALUE (no index gathers), then the kNN
+         covariance as two masked products — C = W b b^T - (W b)(W b)^T / k
+         with W the 0/1 "within k-th distance" matrix. No neighbor gather
+         ever happens;
       5. smallest-eigenvector normals in closed form
          (:func:`_smallest_eigvec3`), oriented toward the sensor.
 
@@ -252,8 +251,6 @@ def knn_normals_rbc(points8: jnp.ndarray, k: int = 16, n_r: int = 0,
       chunk: bins per ``lax.map`` step of the per-bin pass (bounds the
         (chunk, cq, cb) score tensor's footprint).
     """
-    from icp_tpu.rbc.grouping import group_rows_by_bin
-
     p = points8[..., :3]
     m = p.shape[0]
     if n_r == 0:
@@ -270,26 +267,24 @@ def knn_normals_rbc(points8: jnp.ndarray, k: int = 16, n_r: int = 0,
     stride = m // n_r
     rep_idx = _morton_order(p)[stride // 2:: stride][:n_r]
     reps = p[rep_idx]
+    rep_ids, counts = _nearest_reps(p, reps, multi_assign)
+    return _knn_rbc_tail(points8, p, valid, rep_ids, counts, reps, n_r, m,
+                         k, multi_assign, chunk)
+
+
+def _nearest_reps(p: jnp.ndarray, reps: jnp.ndarray, multi_assign: int):
+    """Each point's ``multi_assign`` nearest representatives (geometric
+    metric), in query strips of a (block, n_r) score matrix.
+
+    Returns (rep_ids (m, multi_assign) int32, counts (multi_assign, n_r)
+    int32) with ``counts[j, b] == sum(rep_ids[:, j] == b)`` exactly.
+    """
+    m, n_r = p.shape[0], reps.shape[0]
     hi = jax.lax.Precision.HIGHEST
     sq_r = jnp.sum(reps * reps, axis=-1)
-
-    # Top-`multi_assign` nearest reps per point, in query strips.
     block = max(512, min(8192, m))
     padq = (-m) % block
     p_q = jnp.concatenate([p, jnp.zeros((padq, 3), p.dtype)]) if padq else p
-
-    from icp_tpu.kernels.knn_moments import rep_top2_counts_pallas
-
-    if (jax.default_backend() == "tpu" and multi_assign == 2
-            and m % 512 == 0):
-        # VMEM-resident top-2 + counts kernel: the XLA strip formulation
-        # below round-trips the (block, n_r) score strip through HBM per
-        # masked-argmin pass (~9 ms at 262144x2048).
-        i1, i2, counts = rep_top2_counts_pallas(p, reps)
-        rep_ids = jnp.stack([i1, i2], -1)
-        return _knn_rbc_tail(points8, p, valid, rep_ids, counts, reps,
-                             n_r, m, k, multi_assign, chunk)
-
     bin_iota = jnp.arange(n_r, dtype=jnp.int32)[None, :]
     # Strip-padding rows must not enter the counts (they are dropped from
     # the grouping keys, and given counts must match those EXACTLY).
@@ -297,13 +292,10 @@ def knn_normals_rbc(points8: jnp.ndarray, k: int = 16, n_r: int = 0,
 
     def strip(args):
         q, vm = args
-        # Successive masked argmins, NOT top_k: top_k(2) over n_r costs
-        # 38.5 ms at 262144x2048 on a v5e (sorting-network lowering);
-        # multi_assign fused argmin passes cost ~the score matmul.
-        # Per-choice bin COUNTS accumulate for free against the resident
-        # score strip — grouping with given counts skips its searchsorted
-        # over the sorted keys, which degrades to ~25 ms at this m (same
-        # trick as the ICP pipeline's rep_assign_counts kernel).
+        # Successive masked argmins rather than top_k (the choice was made
+        # on the previous accelerator, where top_k lowered to a sorting
+        # network; not yet re-measured on the GPU). Per-choice bin COUNTS
+        # come from the same strip, so the grouping skips its own count.
         d = (jnp.sum(q * q, -1)[:, None]
              - 2.0 * jnp.dot(q, reps.T, precision=hi) + sq_r[None, :])
         ids, cts = [], []
@@ -321,18 +313,14 @@ def knn_normals_rbc(points8: jnp.ndarray, k: int = 16, n_r: int = 0,
     rep_ids, strip_counts = jax.lax.map(
         strip, (p_q.reshape(-1, block, 3), rowmask.reshape(-1, block)))
     rep_ids = rep_ids.reshape(-1, multi_assign)[:m]  # (m, a)
-    counts = jnp.sum(strip_counts, axis=0)  # (a, n_r) exact per-choice
-    return _knn_rbc_tail(points8, p, valid, rep_ids, counts, reps, n_r, m,
-                         k, multi_assign, chunk)
+    return rep_ids, jnp.sum(strip_counts, axis=0)  # (a, n_r) exact
 
 
 def _knn_rbc_tail(points8, p, valid, rep_ids, counts, reps, n_r: int,
                   m: int, k: int, multi_assign: int,
                   chunk: int) -> jnp.ndarray:
-    """Grouping + per-bin covariances + eig + scatter (shared by the
-    Pallas-assign and XLA-strip front halves of :func:`knn_normals_rbc`)."""
-    import jax
-
+    """Grouping + per-bin covariances + eig + scatter (the back half of
+    :func:`knn_normals_rbc`)."""
     from icp_tpu.rbc.grouping import group_rows_by_bin
 
     mean_occ = m // n_r
@@ -342,20 +330,19 @@ def _knn_rbc_tail(points8, p, valid, rep_ids, counts, reps, n_r: int,
     # (boundary coverage) need their own groupings. This removes a third
     # of the sort/table work vs separate query + 2x-multi-assigned-db
     # groupings. Invalid points are NaN-encoded (they fall out of every
-    # neighborhood via the kernel's isfinite masking) instead of carrying
+    # neighborhood via the moments' isfinite masking) instead of carrying
     # a validity payload column. Capacity 1.5x mean per choice (~0.7%
     # overflow with stratified reps — the occupancy probe above);
     # overflowed queries get zero normals (= no plane constraint, bounded
-    # <2% by the parity test) and the moment kernel's cost is linear in
-    # this capacity on BOTH axes.
+    # <2% by the parity test) and the moment cost is linear in this
+    # capacity on BOTH axes.
     cq = max(((3 * mean_occ // 2 + 7) // 8) * 8, 16)
-    use_pallas = jax.default_backend() == "tpu"
     p_nan = jnp.where(valid[:, None], p, jnp.nan)
     g1 = group_rows_by_bin(
         rep_ids[:, 0], n_r, cq,
         (jnp.concatenate([p_nan, jnp.arange(m, dtype=p.dtype)[:, None]],
                          axis=1),),
-        counts=counts[0], use_pallas=use_pallas)
+        counts=counts[0])
     qp = g1.grouped[0][..., :3]                       # (n_r, cq, 3)
     # ids ride as a float payload (exact to 2^24 — 16.7M points, far
     # beyond any single sweep).
@@ -365,30 +352,14 @@ def _knn_rbc_tail(points8, p, valid, rep_ids, counts, reps, n_r: int,
     parts, vparts = [qp], [g1.valid]
     for j in range(1, multi_assign):
         gj = group_rows_by_bin(rep_ids[:, j], n_r, cq, (p_nan,),
-                               counts=counts[j], use_pallas=use_pallas)
+                               counts=counts[j])
         parts.append(gj.grouped[0])
         vparts.append(gj.valid)
     bins = jnp.concatenate(parts, axis=1)         # (n_r, a*cq, 3)
     slot_valid = jnp.concatenate(vparts, axis=1)
 
-    # 4. Per-bin kNN covariances: one fused Pallas pass on TPU (d2 stays
-    # VMEM-resident; rep-centering — which kills the f32 cancellation of
-    # raw z~1.5e3 coordinates in the covariance — happens IN-kernel; the
-    # k-th distance comes from a value bisection, not top_k —
-    # kernels/knn_moments.py has the numbers), identical-math XLA twin
-    # elsewhere.
-    from icp_tpu.kernels.knn_moments import (bin_knn_moments_pallas,
-                                             bin_knn_moments_ref,
-                                             knn_kernel_fits)
-
-    use_pallas = (jax.default_backend() == "tpu"
-                  and knn_kernel_fits(n_r, cq, bins.shape[1]))
-    if use_pallas:
-        comps, _cnt = bin_knn_moments_pallas(qp, bins, reps, slot_valid,
-                                             k=k)
-    else:
-        comps, _cnt = bin_knn_moments_ref(qp, bins, reps, slot_valid,
-                                          k=k, chunk=chunk)
+    # 4. Per-bin kNN covariances, chunked over bins to bound memory.
+    comps = bin_knn_moments(qp, bins, reps, slot_valid, k=k, chunk=chunk)
     nx, ny, nz = _smallest_eigvec3_components(*comps)
     # Orient toward the sensor origin (n . p < 0) — against the RAW
     # (uncentered) query coordinates.
@@ -396,8 +367,6 @@ def _knn_rbc_tail(points8, p, valid, rep_ids, counts, reps, n_r: int,
     sgn = jnp.where(ip > 0, -1.0, 1.0)
 
     # 5. Scatter back to original order; invalid/overflow slots drop.
-    # Three 1-D component scatters, not one (slots, 3) row scatter — a
-    # row scatter's 3-lane rows tile to 128 lanes of physical traffic.
     # Valid targets are distinct by construction (each query holds one
     # slot), so unique_indices skips the collision-ordering machinery;
     # dropped slots get distinct out-of-range ids to keep that promise.
@@ -411,14 +380,100 @@ def _knn_rbc_tail(points8, p, valid, rep_ids, counts, reps, n_r: int,
     return jnp.where(valid[:, None], out, 0.0)
 
 
+# Bisection halvings for the k-th distance value: 18 resolves the
+# threshold to ~2^-18 of the neighborhood's distance range — below the
+# spacing of distinct neighbors on mm-scale clouds (ties just admit the
+# tied member, which PCA does not feel).
+_BISECT_ITERS = 18
+
+
+def _knn_moments(qp, bins, reps, bvalid, k: int):
+    """Per-query kNN covariance components for a batch of bins.
+
+    Shapes: qp (BB, cq, 3) RAW grouped queries (NaN for invalid points),
+    bins (BB, cb, 3) RAW candidates (NaN for invalid points), reps
+    (BB, 3) bin representatives, bvalid (BB, cb) slot-occupancy mask.
+    Everything is centered by the bin's representative here: covariances
+    and distances are translation-invariant, and raw world coordinates
+    (z ~ 1.5e3) would eat f32 in the C = M2 - S1 S1^T / n cancellation.
+
+    The k-th smallest distance per query comes from a bisection on its
+    VALUE (count-below threshold, _BISECT_ITERS halvings — no top_k, no
+    neighbor index), then each neighborhood's covariance is two masked
+    products:
+
+        S1 = W @ bins,  M2 = W @ b9 (b9 = slotwise outer products)
+        C  = M2 - S1 S1^T / n   (n = |W| — ties may admit a few more
+                                 than k; PCA is insensitive)
+
+    Returns (c00, c01, c02, c11, c12, c22), each (BB, cq).
+    """
+    qp = qp - reps[:, None, :]
+    bins = bins - reps[:, None, :]
+    sq_b = jnp.sum(bins * bins, axis=-1)
+    sq_b = jnp.where(bvalid & jnp.isfinite(sq_b), sq_b, jnp.inf)
+    # Zero the invalid (NaN-encoded) candidates: their sq_b is +inf
+    # (excluded from every neighborhood via d2), but a NaN entry would
+    # poison the W-masked products below (0 * NaN = NaN).
+    bins = jnp.where(jnp.isfinite(bins), bins, 0.0)
+    b9 = (bins[..., :, None] * bins[..., None, :]).reshape(
+        bins.shape[:2] + (9,))
+    sq_q = jnp.sum(qp * qp, axis=-1)  # (BB, cq)
+    cross = dot3(qp, bins, (((2,), (2,)), ((0,), (0,))))
+    d2 = sq_q[..., None] - 2.0 * cross + sq_b[:, None, :]  # (BB, cq, cb)
+    finite = jnp.isfinite(d2)
+    n_valid = jnp.sum(finite.astype(qp.dtype), axis=-1)  # (BB, cq)
+    k_eff = jnp.minimum(jnp.asarray(float(k), qp.dtype), n_valid)
+
+    # Bisection on the k-th smallest value. Invariant: count(<= hi) >=
+    # k_eff (hi starts above the max finite value), count(<= lo) < k_eff.
+    hi = jnp.max(jnp.where(finite, d2, 0.0), axis=-1) + 1.0
+    lo = jnp.zeros_like(hi) - 1.0
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        cnt = jnp.sum((d2 <= mid[..., None]).astype(qp.dtype), axis=-1)
+        take_hi = cnt >= k_eff
+        hi = jnp.where(take_hi, mid, hi)
+        lo = jnp.where(take_hi, lo, mid)
+
+    W = jnp.logical_and(d2 <= hi[..., None], finite).astype(qp.dtype)
+    cnt = jnp.maximum(jnp.sum(W, axis=-1), 1.0)
+    # dot3 is EXACT here: W is 0/1 (lossless in bf16, its lo part zero),
+    # so the 3-pass split reduces to W @ b_hi + W @ b_lo.
+    dims_w = (((2,), (1,)), ((0,), (0,)))
+    S1 = dot3(W, bins, dims_w)  # (BB, cq, 3)
+    M2 = dot3(W, b9, dims_w)    # (BB, cq, 9)
+    outer9 = (S1[..., :, None] * S1[..., None, :]).reshape(M2.shape)
+    C = M2 - outer9 / cnt[..., None]
+    return (C[..., 0], C[..., 1], C[..., 2], C[..., 4], C[..., 5],
+            C[..., 8])
+
+
+def bin_knn_moments(qp: jnp.ndarray, bins: jnp.ndarray, reps: jnp.ndarray,
+                    bvalid: jnp.ndarray, *, k: int, chunk: int = 128):
+    """:func:`_knn_moments` over all bins, ``chunk`` bins per ``lax.map``
+    step (bounds the (chunk, cq, cb) distance tensor). Returns the six
+    (n_r, cq) covariance components."""
+    n_r, cq = qp.shape[:2]
+    n_chunks = max(n_r // chunk, 1)
+    csz = n_r // n_chunks
+
+    def split(x):
+        return x.reshape((n_chunks, csz) + x.shape[1:])
+
+    comps = jax.lax.map(lambda a: _knn_moments(*a, k=k),
+                        (split(qp), split(bins), split(reps), split(bvalid)))
+    return tuple(c.reshape(n_r, cq) for c in comps)
+
+
 def normals_for(points8: jnp.ndarray, mode: str = "auto") -> jnp.ndarray:
     """Dispatch normal estimation (``ICPConfig.normal_mode``).
 
     "grid": organized row-major square grid (central differences).
     "knn": PCA of geometric k-NN (unorganized clouds). Exact brute-force
       up to 16384 points; beyond that it automatically routes to the
-      RBC-accelerated estimator (the O(m^2) brute matmuls are the scale
-      cap on LiDAR sweeps — ~57 ms/frame at 128k).
+      RBC-accelerated estimator (the O(m^2) brute products are the scale
+      cap on LiDAR sweeps).
     "knn_rbc": force the RBC-accelerated estimator at any size.
     "auto": square point counts >= 8x8 are assumed organized (the
       reference's landmark sets always are) and get grid normals; other

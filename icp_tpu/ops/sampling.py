@@ -8,7 +8,6 @@ whatever consumes them.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 # Kinect VGA geometry hard-coded throughout the reference
@@ -36,35 +35,10 @@ def get_landmarks(cloud8: jnp.ndarray) -> jnp.ndarray:
     """
     img = cloud8.reshape(IMAGE_HEIGHT, IMAGE_WIDTH, 8)
 
-    def _onehot_tpu(x8):
-        # Row stride rides a major-dim strided slice (cheap), but the
-        # column stride-4 inside the (640, 8)-tiled minor dims lowers as
-        # 16384 scattered 32 B copies — measured 103 us on a v5e. An
-        # exact one-hot MXU contraction over the column axis does the
-        # same selection at 24 us (bit-identical: one-hot rows are exact
-        # in every precision; A/B + equality in /tmp-probe recorded in
-        # docs/PERF_TABLE.md). Reference getLMs: 13 us on its GPU.
-        cols = jnp.arange(IMAGE_WIDTH, dtype=jnp.int32)
-        sel = (cols[:, None]
-               == 65 + 4 * jnp.arange(LM_GRID, dtype=jnp.int32)[None, :]
-               ).astype(x8.dtype)  # (640, 128) compile-time constant
-        x = x8[49:49 + 3 * LM_GRID:3]  # (128, 640, 8)
-        y = jax.lax.dot_general(x, sel, (((1,), (0,)), ((), ())),
-                                precision=jax.lax.Precision.HIGHEST)
-        return jnp.transpose(y, (0, 2, 1)).reshape(LM_GRID * LM_GRID, 8)
-
-    def _strided(x8):
-        # Static STRIDED SLICE, not an advanced-index gather — the
-        # index-array form lowers as a general 16k-row gather.
-        lms = x8[49:49 + 3 * LM_GRID:3, 65:65 + 4 * LM_GRID:4]
-        return lms.reshape(LM_GRID * LM_GRID, 8)
-
-    # Selected per LOWERING platform, not trace-time default backend — a
-    # trace built on a CPU-pinned host and lowered for TPU (or vice versa)
-    # still gets the right variant. Both are bit-exact; the split is
-    # performance-only.
-    return jax.lax.platform_dependent(img, tpu=_onehot_tpu,
-                                      default=_strided)
+    # Static STRIDED SLICE, not an advanced-index gather — the index-array
+    # form lowers as a general 16k-row gather.
+    lms = img[49:49 + 3 * LM_GRID:3, 65:65 + 4 * LM_GRID:4]
+    return lms.reshape(LM_GRID * LM_GRID, 8)
 
 
 def get_representatives(landmarks8: jnp.ndarray, n_ry: int, n_rx: int) -> jnp.ndarray:

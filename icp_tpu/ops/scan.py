@@ -4,7 +4,7 @@ The reference uses a 3-kernel Blelloch scheme (``inclusiveScan_i`` /
 ``exclusiveScan_i`` / ``addGroupSums_i``, reference
 kernels/scan_kernels.cl:66-310, class ``Scan<INCL/EXCL, int>``
 src/ICP/algorithms.cpp:336-615). XLA lowers ``cumsum`` to an efficient
-parallel scan on TPU; the exclusive variant shifts in the identity like the
+parallel scan; the exclusive variant shifts in the identity like the
 reference's shift-by-one pre-sweep.
 """
 

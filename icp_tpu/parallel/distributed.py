@@ -29,8 +29,10 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     """Initialize the multi-process runtime (idempotent).
 
     Arguments default to the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID) and to TPU-pod auto-detection when
-    none are set (jax.distributed.initialize with no args on Cloud TPU).
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID). With none set,
+    jax.distributed.initialize falls back to cluster auto-detection, which
+    fails on a host that no cluster manager describes — pass the
+    coordinator address, process count and id explicitly there.
     """
     # Do NOT probe jax.process_count() here — it would initialize the XLA
     # backend, after which jax.distributed.initialize refuses to run.

@@ -10,8 +10,9 @@ sharded ICP/SLAM paths use. Axes:
   * ``mp`` — model parallel over the search structure (representatives and
     their bins). Spreads the RBC bins and the per-rep batched matmuls.
 
-On hardware both axes ride ICI within a slice; XLA inserts the collectives
-from ``psum``/``all_gather`` calls inside ``shard_map``.
+On one host the cards are joined all to all by NVLink, so the mesh's
+shape follows the algorithm, not the wiring; XLA lowers the ``psum`` /
+``pmin`` calls inside ``shard_map`` to NCCL collectives.
 """
 
 from __future__ import annotations

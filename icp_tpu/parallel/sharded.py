@@ -17,7 +17,7 @@ this is the BASELINE.json extension: the moving/query axis is sharded over
     is scattered back to original query order, and matched pairs never
     leave the owner shard.
   * collectives per iteration: the two phase-1 pmins plus ONE ``psum`` of
-    the partial sums — 18 floats for POINT (kernels/fused_step.py moment
+    the partial sums — 18 floats for POINT (rbc/fused_point.py moment
     partials), 27 floats (6x6 system + rhs) for PLANE/GICP.
     ``robust_adaptive`` adds the 3-collective distributed residual median
     (ops.moments.masked_median_sharded: local-median pmin/pmax bracket +
@@ -48,14 +48,6 @@ from icp_tpu.icp.horn import solve_step_transform
 from icp_tpu.icp.quaternion import qmul, qnormalize, qrotate, transform_points
 from icp_tpu.icp.state import ICPState, identity_state
 from icp_tpu.icp.run import converged
-from icp_tpu.kernels.fused_step import (
-    assemble_point_moments,
-    bin_point_moments_pallas,
-    bin_point_moments_ref,
-    moments_kernel_fits,
-    point_moment_partials,
-    prep_similarity,
-)
 from icp_tpu.ops.distance import metric_weights, pairwise_sq_dists
 from icp_tpu.ops.moments import (
     adaptive_robust_delta_sharded,
@@ -68,6 +60,12 @@ from icp_tpu.ops.moments import (
 from icp_tpu.ops.sampling import sample_representative_indices
 from icp_tpu.parallel.mesh import DP_AXIS, MP_AXIS
 from icp_tpu.rbc.construct import RBCIndex, rbc_construct
+from icp_tpu.rbc.fused_point import (
+    assemble_point_moments,
+    bin_point_moments,
+    point_moment_partials,
+    prep_similarity,
+)
 from icp_tpu.rbc.grouping import group_rows_by_bin
 from icp_tpu.rbc.search import bin_phase2
 from icp_tpu.runtime.config import (
@@ -153,33 +151,22 @@ def _point_partials(local: RBCIndex, moving_local: jnp.ndarray,
 
     Groups the shard's owned RAW moving rows into its local bins (overflow
     and remote-owned queries land in the dropped parking bin) and reduces
-    straight to per-bin 8x8 moment matrices — the single-chip fused
-    pipeline (kernels/fused_step.py) on the local slice. Returns the (18,)
+    straight to per-bin 8x8 moment matrices — the single-device fused
+    pipeline (rbc/fused_point.py) on the local slice. Returns the (18,)
     pre-mean moment sums; additive across shards (each query contributes
     on exactly its owner, so no mp de-duplication divide is needed).
     """
-    # use_pallas for the table build: auto-falls back to the XLA gather
-    # when n_r_local + 1 has no legal bin batch (odd parking-bin counts).
     glayout = group_rows_by_bin(
-        bin_of_query, n_r_local + 1, query_capacity, (moving_local,),
-        use_pallas=config.use_pallas and jax.default_backend() == "tpu")
+        bin_of_query, n_r_local + 1, query_capacity, (moving_local,))
     mg = glayout.grouped[0][:n_r_local]
     qvalid = glayout.valid[:n_r_local].astype(moving_local.dtype)
     G, b_row = prep_similarity(state.q, state.t, state.s)
     weighted = config.weighting is Weighting.WEIGHTED
     robust = config.robust.value
-    if (config.use_pallas and jax.default_backend() == "tpu"
-            and moments_kernel_fits(mg.shape[0], mg.shape[1],
-                                    local.bins_centered.shape[1])):
-        P_b = bin_point_moments_pallas(
-            mg, qvalid, local.reps, local.bins_centered, local.sq_b_masked,
-            G, b_row, params.alpha, weighted=weighted, robust=robust,
-            robust_delta=params.robust_delta)
-    else:
-        P_b = bin_point_moments_ref(
-            mg, qvalid, local.reps, local.bins_centered, local.sq_b_masked,
-            G, b_row, params.alpha, weighted=weighted, robust=robust,
-            robust_delta=params.robust_delta)
+    P_b = bin_point_moments(
+        mg, qvalid, local.reps, local.bins_centered, local.sq_b_masked,
+        G, b_row, params.alpha, weighted=weighted, robust=robust,
+        robust_delta=params.robust_delta)
     return point_moment_partials(P_b, local.reps, local.moment_w)
 
 
@@ -193,8 +180,7 @@ def _grouped_pairs(local: RBCIndex, tm: jnp.ndarray, params: ICPParams,
     nn distance, pair mask, matched fixed normals, extra per-query rows).
     """
     glayout = group_rows_by_bin(
-        bin_of_query, n_r_local + 1, query_capacity, (tm, extra_rows),
-        use_pallas=config.use_pallas and jax.default_backend() == "tpu")
+        bin_of_query, n_r_local + 1, query_capacity, (tm, extra_rows))
     tg = glayout.grouped[0][:n_r_local]
     eg = glayout.grouped[1][:n_r_local]
     qvalid = glayout.valid[:n_r_local]
@@ -202,13 +188,11 @@ def _grouped_pairs(local: RBCIndex, tm: jnp.ndarray, params: ICPParams,
     qc = tg - local.reps[:, None, :]
     w8 = metric_weights(params.alpha, tm.dtype)
     qg_w = qc * w8
-    sq_q = jnp.sum(qg_w * qc, axis=-1)
-    use_pallas = config.use_pallas and jax.default_backend() == "tpu"
     best_score, matched_g, matched_n = bin_phase2(
         local.bins, local.bins_centered, local.sq_b_masked,
-        local.bin_normals, qg_w, with_normals=config.needs_normals,
-        use_pallas=use_pallas)
-    best_d2 = jnp.maximum(best_score + sq_q, 0.0)
+        local.bin_normals, qg_w, with_normals=config.needs_normals)
+    # Residual from the matched row, not the cancelled score expansion.
+    best_d2 = jnp.sum(w8 * (tg - matched_g) ** 2, axis=-1)
     valid = qvalid & jnp.isfinite(best_score)
 
     n_rows = n_r_local * tg.shape[1]
@@ -364,9 +348,9 @@ def sharded_icp_run(moving_local, index, params, config,
     state = identity_state(moving_local.dtype)
 
     # Convergence computed in-body and carried as a flag — keeps the cond
-    # to scalar logic on carried values (see icp.run.icp_run: evaluating
-    # converged() in the cond costs ~70 us/iteration of tiny kernel
-    # launches between iterations). All shards compute identical state, so
+    # to scalar logic on carried values (see icp.run.icp_run: evaluated in
+    # the cond, converged() becomes a run of tiny kernel launches between
+    # iterations). All shards compute identical state, so
     # the flag agrees across the mesh.
     def cond(carry):
         s, done = carry
@@ -408,7 +392,7 @@ def make_sharded_register(mesh, config: ICPConfig):
     # VARIANCE is relatively larger (Poisson tail: P(occ > 1.5 mu) grows
     # as mu shrinks), so floor it at mu + 4 sqrt(mu) (~1e-4 tail under
     # Poisson; real scans cluster worse, and overflow is a silent
-    # rep-fallback). 8-aligned (sublane dim); n_dp=1 reproduces the
+    # rep-fallback). 8-aligned (whole query tiles); n_dp=1 reproduces the
     # single-chip capacity exactly.
     mu = max(m_local // config.n_r, 1)
     floor = mu + int(4 * mu ** 0.5)

@@ -9,10 +9,9 @@ RandomBallCover dependency; usage at reference src/ICP/algorithms.cpp:
   3. per-representative counts and offsets (count + exclusive scan),
   4. database permuted into bin-major order.
 
-TPU-first: step 1 is one (n, 8) x (8, n_r) matmul on the MXU (see
-icp_tpu.ops.distance); steps 3-4 are the fixed-capacity grouping of
-icp_tpu.rbc.grouping. The padded (n_r, capacity, 8) bin tensor makes the
-search a batched matmul.
+Step 1 is one (n, 8) x (8, n_r) product (see icp_tpu.ops.distance); steps
+3-4 are the fixed-capacity grouping of icp_tpu.rbc.grouping. The padded
+(n_r, capacity, 8) bin tensor gives the search static shapes.
 """
 
 from __future__ import annotations
@@ -21,9 +20,9 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from icp_tpu.kernels.fused_gn import gn_translation_tensor
-from icp_tpu.kernels.fused_step import point_translation_tensor
 from icp_tpu.ops.distance import pairwise_sq_dists
+from icp_tpu.rbc.fused_gn import gn_translation_tensor
+from icp_tpu.rbc.fused_point import point_translation_tensor
 from icp_tpu.rbc.grouping import GroupedRows, group_rows_by_bin
 
 
@@ -58,12 +57,11 @@ class RBCIndex(NamedTuple):
     normals: jnp.ndarray  # (n, 3) fixed-surface normals (zeros if unused)
     bin_normals: jnp.ndarray  # (n_r, capacity, 3)
     # (n_r, 8, 8, 18) hoisted POINT moment-translation coefficients
-    # (kernels.fused_step.point_translation_tensor) — loop-invariant, so
-    # the per-iteration grouped-moment tail is one MXU matvec instead of
-    # ~20 tiny slice/outer/sum kernels (~2% per iteration interleaved
-    # A/B on a v5e; benchmarks/profile_translation_ab.py).
+    # (rbc.fused_point.point_translation_tensor) — loop-invariant, so the
+    # per-iteration grouped-moment tail is one matvec instead of ~20 small
+    # slice/outer/sum ops.
     moment_w: jnp.ndarray
-    # Fused PLANE/GICP (kernels.fused_gn) hoisted invariants, None unless
+    # Fused PLANE/GICP (rbc.fused_gn) hoisted invariants, None unless
     # the index carries normals: (n_r, cb, 12) [centered points | normals]
     # matched-gather payload and the (n_r, 8, 8, 64) GN frame-translation
     # coefficients (gn_translation_tensor).
@@ -94,7 +92,7 @@ def rbc_construct(db: jnp.ndarray, reps: jnp.ndarray, alpha,
     Returns:
       RBCIndex pytree.
     """
-    d2 = pairwise_sq_dists(db, reps, alpha)  # (n, n_r) on the MXU
+    d2 = pairwise_sq_dists(db, reps, alpha)  # (n, n_r)
     rep_id = jnp.argmin(d2, axis=1).astype(jnp.int32)
     if rep_db_ids is None:
         # Nearest database point per representative — distance-0 self-match

@@ -1,5 +1,5 @@
-"""Fixed-capacity grouping of points by bin id — the TPU answer to RBC's
-irregular bins.
+"""Fixed-capacity grouping of points by bin id — the static-shape answer to
+RBC's irregular bins.
 
 The reference's RBC construct counts points per representative, exclusive-
 scans the counts into offsets, and permutes the database into bin-major
@@ -7,10 +7,9 @@ order (its scan kernels exist for exactly this, SURVEY.md §2.5). XLA needs
 static shapes, so on top of the same count/scan/permute we materialize a
 padded (n_bins, capacity) member table with a validity mask.
 
-TPU-first: completely scatter-free. One stable 16k argsort costs ~10 us on
-a v5e, while a 16k scatter-add costs ~300 us — so counts/offsets come from
-``searchsorted`` on the sorted keys instead of a bincount scatter, and the
-member table is a static-shaped gather.
+Scatter-free: counts and offsets come from ``searchsorted`` on the sorted
+keys (or are handed in by the rep-assignment pass) instead of a bincount
+scatter, and the member table is a static-shaped gather.
 """
 
 from __future__ import annotations
@@ -22,32 +21,17 @@ import jax.numpy as jnp
 
 
 # group_by_bin only: below this many (n_bins * n) compare-ops the dense
-# equality-reduce wins (pure VPU work, no extra sort); above it paying one
-# extra jnp.sort for the O(n_bins log n) searchsorted path wins. NOTE this
-# gate does NOT apply to bin_sort_layout — there the sorted keys are a free
-# byproduct of the layout sort and searchsorted wins at every measured
-# shape (benchmarks/profile_counts.py, interleaved A/B on a v5e:
-# -7.2% full-iteration at 16384x256, -4.0% at 65536x1024).
+# equality-reduce counts; above it one extra jnp.sort feeds the
+# O(n_bins log n) searchsorted path. bin_sort_layout always uses
+# searchsorted (its sorted keys come free with the layout sort). The value
+# was tuned on the previous accelerator and has not been re-measured on
+# the GPU.
 _DENSE_COUNTS_MAX_OPS = 2 ** 24
-
-# Benchmark-only escape hatch: False re-enables the dense equality-reduce
-# counts in bin_sort_layout so benchmarks/profile_counts.py can A/B the two.
-_LAYOUT_COUNTS_SORTED = True
-
-# Benchmark-only escape hatch: False disables the windowed table kernel
-# (large-m path) so benchmarks/probe_windowed_ab.py can A/B it against the
-# XLA row gather in one process.
-_WINDOWED_TABLE = True
 
 # Rows threshold above which group_rows_by_bin sorts the row PAYLOAD along
 # with the key (one variadic sort) instead of key-sort + row-gather
-# permute: the XLA row gather degrades to ~9-11 us per 1k rows at large m
-# (2-5 ms at 262k), while the sort network's payload movement scales with
-# the sort itself. Composed alternating A/B (benchmarks/probe_paysort_ab
-# .py, v5e, median of 5 pairs, every pair consistent): 262144x2048
-# -2.17 ms/iteration (10.3 -> 8.1), 65536x1024 -0.236 (1.71 -> 1.47),
-# 16384x256 -0.010 (within noise, mixed signs -> NOT adopted there per
-# the repo's A/B discipline). Threshold picks the clear winners.
+# permute. Tuned on the previous accelerator, where large row gathers were
+# slow; not yet re-measured on the GPU.
 _PAYLOAD_SORT_MIN_ROWS = 32768
 
 
@@ -108,9 +92,9 @@ def group_by_bin(bin_ids: jnp.ndarray, n_bins: int, capacity: int) -> GroupLayou
     """
     n = bin_ids.shape[0]
     order = jnp.argsort(bin_ids, stable=True).astype(jnp.int32)
-    # Counts: dense equality reduce at small n_bins*n (pure VPU work, ~4M
-    # bool ops at the flagship shape, cheaper than materializing sorted
-    # keys), searchsorted over a sorted copy when the dense product blows up.
+    # Counts: dense equality reduce at small n_bins*n (~4M compares at the
+    # flagship shape), searchsorted over a sorted copy when the dense
+    # product blows up.
     if n_bins * n <= _DENSE_COUNTS_MAX_OPS:
         counts = _counts_dense(bin_ids, n_bins)
     else:
@@ -121,8 +105,6 @@ def group_by_bin(bin_ids: jnp.ndarray, n_bins: int, capacity: int) -> GroupLayou
     valid = jnp.arange(capacity, dtype=jnp.int32)[None, :] < counts[:, None]
     # Each bin's members are a CONTIGUOUS run order[offsets[b] : +capacity],
     # so build the table as vmapped dynamic slices — a strided block gather.
-    # (The elementwise form order[offsets[:,None]+arange] is a 32k SCALAR
-    # gather, ~0.5 ms on a v5e vs ~30 us for the sliced form.)
     order_padded = jnp.concatenate(
         [order, jnp.zeros((capacity,), jnp.int32)])
     member = jax.vmap(
@@ -157,9 +139,9 @@ def bin_sort_layout(bin_ids: jnp.ndarray, n_bins: int, capacity: int,
     One single-array sort of the composite key bin*n + i (index in the low
     bits makes the sort stable for free); counts via an equality reduce.
 
-    ``counts`` optionally supplies precomputed per-bin counts (e.g. the
-    rep-assign kernel's free accumulation, fused_step.
-    rep_assign_counts_pallas) — must equal ``sum(bin_ids == b)`` exactly.
+    ``counts`` optionally supplies precomputed per-bin counts (e.g. from
+    rbc.fused_point.rep_assign_counts) — must equal ``sum(bin_ids == b)``
+    exactly.
     """
     n = bin_ids.shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
@@ -172,16 +154,9 @@ def bin_sort_layout(bin_ids: jnp.ndarray, n_bins: int, capacity: int,
         sbin, sidx = jax.lax.sort((bin_ids, iota), num_keys=1, is_stable=True)
 
     # Counts via searchsorted over the sorted bins — a free byproduct of
-    # the layout sort, so unlike group_by_bin there is no dense/sparse
-    # trade-off here: measured faster than the (n_bins, n) equality reduce
-    # at every shape (-7.2% full-iteration at the flagship 256x16384,
-    # -4.0% at 1024x65536; benchmarks/profile_counts.py). The module flag
-    # exists only so that A/B harness can re-measure the dense variant.
+    # the layout sort.
     if counts is None:
-        if _LAYOUT_COUNTS_SORTED:
-            counts = _counts_from_sorted(sbin, n_bins)
-        else:
-            counts = _counts_dense(bin_ids, n_bins)
+        counts = _counts_from_sorted(sbin, n_bins)
     cum = jnp.cumsum(counts)
     offsets = (cum - counts).astype(jnp.int32)
     valid = jnp.arange(capacity, dtype=jnp.int32)[None, :] < counts[:, None]
@@ -189,40 +164,27 @@ def bin_sort_layout(bin_ids: jnp.ndarray, n_bins: int, capacity: int,
 
 
 def group_rows_by_bin(bin_ids: jnp.ndarray, n_bins: int, capacity: int,
-                      rows_list: tuple, use_pallas: bool = False,
-                      interpret: bool = False,
+                      rows_list: tuple,
                       counts: jnp.ndarray | None = None) -> GroupedRows:
     """Group row data into fixed-capacity bins WITHOUT the member table.
 
-    The original ``group_by_bin`` + ``gather_grouped`` chain costs
-    ~0.25 ms/iteration at the flagship shape on a v5e — the member-table
-    build (vmapped dynamic slices over a 1-D int array) and the permute
-    gather both lower pathologically. This version (all numbers honest —
-    benchmarks/profile_grouping2.py, host-read + marginal differencing):
-
       1. ONE single-array sort of the composite key bin*n + i gives the
-         bin-major stable order (~0.01 ms; the index rides in the low bits
-         so no payload columns are needed),
-      2. one ROW gather moves all row data into bin-major order
-         (~0.03 ms for (16k, 8) — row gathers with >=8 lanes are fine;
-         1-D/1-lane gathers are the pathological case),
-      3. the (n_bins, capacity, d) padded tables are one more row gather
-         at arithmetic positions offsets[b] + c — no dynamic slices.
+         bin-major stable order (the index rides in the low bits, so no
+         payload columns are needed) — or, at large n, one variadic sort
+         that carries the rows along (see _PAYLOAD_SORT_MIN_ROWS),
+      2. one ROW gather moves all row data into bin-major order,
+      3. the (n_bins, capacity, d) padded table is one more row gather at
+         arithmetic positions offsets[b] + c — no dynamic slices.
 
-    Total ~0.11 ms vs ~0.25 ms. Slots past a bin's count read the next
-    bin's rows — garbage, masked by ``valid`` (same contract as the
-    dynamic-slice form).
+    Slots past a bin's count read the next bin's rows — garbage, masked by
+    ``valid``.
 
     Args:
       bin_ids: (n,) int32 bin assignment per point.
       n_bins, capacity: static.
       rows_list: tuple of (n, d_i) float arrays to group (d_i may be 0 —
         such arrays pass through as empty (n_bins, capacity, 0)).
-      use_pallas: build the padded table with the Pallas dynamic-slice
-        kernel (kernels.table_build) instead of the XLA row gather —
-        bit-identical output, ~20 us faster at the flagship shape (the
-        gather lowers as ~24.5k scattered 32 B row copies; the kernel
-        copies each bin's contiguous run as one vector slice).
+      counts: optional precomputed per-bin counts (see bin_sort_layout).
     """
     n = bin_ids.shape[0]
     payload_sort = (n >= _PAYLOAD_SORT_MIN_ROWS
@@ -234,7 +196,7 @@ def group_rows_by_bin(bin_ids: jnp.ndarray, n_bins: int, capacity: int,
     nonempty = [rows for rows in rows_list if rows.shape[1] > 0]
     if payload_sort and nonempty:
         # Large-m path: ONE variadic sort moves key + all row columns —
-        # no separate permute gather (see _PAYLOAD_SORT_MIN_ROWS).
+        # no separate permute gather.
         big = (nonempty[0] if len(nonempty) == 1
                else jnp.concatenate(nonempty, axis=1))
         d_total = big.shape[1]
@@ -260,41 +222,10 @@ def group_rows_by_bin(bin_ids: jnp.ndarray, n_bins: int, capacity: int,
                    else jnp.concatenate(nonempty, axis=1))
             d_total = big.shape[1]
             sorted_big = jnp.take(big, sidx, axis=0)
-        windowed = False
-        if use_pallas:
-            from icp_tpu.kernels.table_build import (
-                bin_table_pallas,
-                bin_table_windowed_pallas,
-                table_kernel_fits,
-                windowed_span_ok,
-            )
-
-            use_pallas = table_kernel_fits(n, n_bins, capacity, d_total)
-            # Beyond the full-VMEM kernel's budget (16x shapes), stream the
-            # sorted rows through the windowed kernel instead — unless this
-            # dispatch's bin-count skew exceeds its 2W coverage, in which
-            # case the cond takes the XLA twin (identical values).
-            windowed = ((not use_pallas) and n_bins % 8 == 0
-                        and _WINDOWED_TABLE)
-
-        def _xla_table(sorted_rows):
-            padded = jnp.concatenate(
-                [sorted_rows, jnp.zeros((capacity, d_total), big.dtype)],
-                axis=0)
-            return jnp.take(padded, flat_pos.reshape(-1), axis=0).reshape(
-                n_bins, capacity, d_total)
-
-        if use_pallas:
-            table = bin_table_pallas(sorted_big, offsets, capacity=capacity,
-                                     interpret=interpret)
-        elif windowed:
-            table = jax.lax.cond(
-                windowed_span_ok(offsets, counts, capacity, m=n),
-                lambda rows: bin_table_windowed_pallas(
-                    rows, offsets, capacity=capacity, interpret=interpret),
-                _xla_table, sorted_big)
-        else:
-            table = _xla_table(sorted_big)
+        padded = jnp.concatenate(
+            [sorted_big, jnp.zeros((capacity, d_total), big.dtype)], axis=0)
+        table = jnp.take(padded, flat_pos.reshape(-1), axis=0).reshape(
+            n_bins, capacity, d_total)
     grouped = []
     k = 0
     for rows, d in zip(rows_list, spans):

@@ -5,12 +5,12 @@ Re-designs ``RBC::RBCSearch<KINECT_R, GENERIC, KINECT>`` (reference usage at
 src/ICP/algorithms.cpp:3349-3371; outputs permuted queries D_OUT_Q_P, matched
 NNs D_OUT_NN, and ``rbc_dist_id`` distances consumed by ICPWeights).
 
-TPU-first shape: queries are grouped by their assigned representative — the
-same trick the reference plays (it emits *permuted* queries and runs the
-downstream reductions on the permuted arrays) — which turns the per-bin
-exhaustive search into ONE batched (n_r, cq, 8) x (n_r, 8, cb) matmul on the
-MXU. No irregular control flow, no per-query gather of a different-sized
-neighborhood.
+Queries are grouped by their assigned representative — the same trick the
+reference plays (it emits *permuted* queries and runs the downstream
+reductions on the permuted arrays) — which turns the per-bin exhaustive
+search into one batched (n_r, cq) x (n_r, cb) search with static shapes:
+no irregular control flow, no per-query neighborhood of its own size. On
+the GPU the per-bin search is a Triton kernel (:mod:`icp_tpu.kernels`).
 
 Overflow/empty-bin fallback: a query whose group slot exceeds the static
 query capacity, or whose representative has an empty bin, matches the
@@ -29,11 +29,18 @@ import jax.numpy as jnp
 
 from icp_tpu.ops.distance import metric_weights, pairwise_sq_dists
 from icp_tpu.rbc.construct import RBCIndex
-from icp_tpu.rbc.grouping import (
-    gather_grouped,
-    group_by_bin,
-    group_rows_by_bin,
+from icp_tpu.rbc.fused_gn import bin_gn_moments, gicp_const_moment, gn_v_total
+from icp_tpu.rbc.fused_point import (
+    bin_min_dists,
+    bin_nn,
+    bin_point_moments,
+    gather_slots,
+    point_moments_from_P,
+    prep_rep_assign,
+    prep_similarity,
+    rep_assign_counts,
 )
+from icp_tpu.rbc.grouping import group_by_bin, group_rows_by_bin
 
 
 class GroupedSearchResult(NamedTuple):
@@ -67,10 +74,9 @@ class GroupedSearchResult(NamedTuple):
 
 def bin_phase2(bins: jnp.ndarray, bins_centered: jnp.ndarray,
                sq_b_masked: jnp.ndarray, bin_normals: jnp.ndarray | None,
-               qg_w: jnp.ndarray, *, with_normals: bool, use_pallas: bool,
-               interpret: bool = False):
+               qg_w: jnp.ndarray, *, with_normals: bool):
     """Per-bin exhaustive search over grouped weighted-centered queries —
-    the shared phase-2 of the single-chip and mp-sharded RBC searches.
+    the shared phase-2 of the single-device and mp-sharded RBC searches.
 
     Args:
       bins: (n_b, cb, 8) bin members (original coordinates).
@@ -83,69 +89,24 @@ def bin_phase2(bins: jnp.ndarray, bins_centered: jnp.ndarray,
       (best_score (n_b, cq) — +inf where the bin is empty,
        matched_g (n_b, cq, 8), matched_n (n_b, cq, 3)).
     """
-    if use_pallas:
-        from icp_tpu.kernels.bin_search import search_kernel_fits
-
-        v = 12 if with_normals else bins.shape[2]
-        use_pallas = search_kernel_fits(bins.shape[0], qg_w.shape[1],
-                                        bins.shape[1], v)
-    if use_pallas:
-        from icp_tpu.kernels.bin_search import bin_search_pallas
-
-        if with_normals:
-            # Payload = points ++ normals (padded to 16 lanes): one one-hot
-            # matmul fetches both for the winner.
-            pad = jnp.zeros(bins.shape[:2] + (1,), bins.dtype)
-            vals = jnp.concatenate([bins, bin_normals, pad], axis=-1)  # V=12
-        else:
-            vals = bins
-        best_score, matched_vals = bin_search_pallas(
-            qg_w, bins_centered, sq_b_masked, vals, interpret=interpret)
-        matched_g = matched_vals[..., :8]
-        matched_n = (matched_vals[..., 8:11] if with_normals
-                     else jnp.zeros(matched_vals.shape[:2] + (3,),
-                                    matched_vals.dtype))
-        return best_score, matched_g, matched_n
-
-    # Same bf16x3 score computation as the kernel (fused_step.dot3) so the
-    # two paths make IDENTICAL argmin decisions — near-ties would otherwise
-    # pick different (equally valid) neighbors and break bitwise parity.
-    from icp_tpu.kernels.fused_step import dot3
-
-    cross = dot3(qg_w, bins_centered, (((2,), (2,)), ((0,), (0,))))
-    # Per query the argmin only needs |b|^2 - 2 q.b (sq_q is a row
-    # constant), and sq_b_masked carries +inf on invalid slots — one fused
-    # pass over the (n_b, cq, cb) tensor instead of three.
-    score = sq_b_masked[:, None, :] - 2.0 * cross
-
-    # argmin and min lower to ONE fused variadic reduce over the big tensor
-    # (a take_along_axis of the winner would be a second full-tensor gather).
-    best_slot = jnp.argmin(score, axis=-1)
-    best_score = jnp.min(score, axis=-1)
-    matched_g = jnp.take_along_axis(bins, best_slot[..., None], axis=1)
+    best_slot, best_score = bin_nn(qg_w, bins_centered, sq_b_masked)
+    matched_g = gather_slots(bins, best_slot)
     if with_normals:
-        matched_n = jnp.take_along_axis(
-            bin_normals, best_slot[..., None], axis=1)
+        matched_n = gather_slots(bin_normals, best_slot)
     else:
         matched_n = jnp.zeros(matched_g.shape[:2] + (3,), matched_g.dtype)
     return best_score, matched_g, matched_n
 
 
 def rbc_search_grouped(index: RBCIndex, queries: jnp.ndarray, alpha,
-                       query_capacity: int, use_pallas: bool = False,
-                       interpret: bool = False,
-                       with_normals: bool = False,
+                       query_capacity: int, with_normals: bool = False,
                        extra_rows: jnp.ndarray | None = None
                        ) -> GroupedSearchResult:
-    """RBC search returning bin-grouped results (the hot path).
+    """RBC search returning bin-grouped results (the unfused path).
 
     Identical search semantics to :func:`rbc_search`, but results stay in
-    the grouped layout: no scatter back to original order (a 16k scatter
-    costs ~300 us on a v5e — pure waste when the consumers are reductions).
-
-    With ``use_pallas`` the scores/argmin/matched-gather chain runs as one
-    fused VMEM-resident kernel (icp_tpu.kernels.bin_search) instead of
-    materializing the (n_r, cq, cb) tensor in HBM.
+    the grouped layout: no scatter back to original order — the consumers
+    are reductions.
     """
     n_r = index.reps.shape[0]
 
@@ -155,24 +116,21 @@ def rbc_search_grouped(index: RBCIndex, queries: jnp.ndarray, alpha,
     if extra_rows is None:
         extra_rows = jnp.zeros((queries.shape[0], 0), queries.dtype)
 
-    # One payload sort groups queries (and any side rows) bin-major with no
-    # member table / gather (see grouping.group_rows_by_bin).
-    glayout = group_rows_by_bin(query_rep, n_r, query_capacity,
-                                (queries, extra_rows),
-                                use_pallas=use_pallas, interpret=interpret)
-    queries_g, extra_g = glayout.grouped  # (n_r, cq, 8), (n_r, cq, k)
-    qlayout = glayout
+    # One sort groups queries (and any side rows) bin-major with no
+    # member table (see grouping.group_rows_by_bin).
+    qlayout = group_rows_by_bin(query_rep, n_r, query_capacity,
+                                (queries, extra_rows))
+    queries_g, extra_g = qlayout.grouped  # (n_r, cq, 8), (n_r, cq, k)
     qc = queries_g - index.reps[:, None, :]  # per-bin centering
 
     w8 = metric_weights(alpha, queries.dtype)
     qg_w = qc * w8
-    sq_q = jnp.sum(qg_w * qc, axis=-1)
 
     best_score, matched_g, matched_n = bin_phase2(
         index.bins, index.bins_centered, index.sq_b_masked,
-        index.bin_normals, qg_w, with_normals=with_normals,
-        use_pallas=use_pallas, interpret=interpret)
-    best_d2 = jnp.maximum(best_score + sq_q, 0.0)
+        index.bin_normals, qg_w, with_normals=with_normals)
+    # Residual from the matched row, not the cancelled score expansion.
+    best_d2 = jnp.sum(w8 * (queries_g - matched_g) ** 2, axis=-1)
     valid = qlayout.valid & jnp.isfinite(best_score)
     n_dropped = queries.shape[0] - jnp.sum(valid.astype(jnp.int32))
     return GroupedSearchResult(
@@ -186,126 +144,55 @@ def rbc_search_grouped(index: RBCIndex, queries: jnp.ndarray, alpha,
     )
 
 
-def rbc_point_assign(index: RBCIndex, moving8: jnp.ndarray,
-                     q: jnp.ndarray, t: jnp.ndarray, s: jnp.ndarray,
-                     alpha, *, use_pallas: bool, interpret: bool = False):
-    """Fused transform + nearest-representative assignment (phase 1 of the
-    fused POINT pipeline; kernels.fused_step.rep_assign_*).
-
-    Returns (rid (m,) int32, G (8, 8), b_row (1, 8)) — the similarity
-    factors are returned so the moments phase reuses them.
-    """
-    from icp_tpu.kernels.fused_step import (
-        prep_rep_assign,
-        prep_similarity,
-        rep_assign_pallas,
-        rep_assign_ref,
-    )
-
-    G, b_row = prep_similarity(q, t, s)
-    C, srow = prep_rep_assign(index.reps, alpha, G, b_row)
-    if use_pallas:
-        rid = rep_assign_pallas(moving8, C, srow, interpret=interpret)
-    else:
-        rid = rep_assign_ref(moving8, C, srow)
-    return rid, G, b_row
-
-
 def rbc_point_assign_counts(index: RBCIndex, moving8: jnp.ndarray,
                             q: jnp.ndarray, t: jnp.ndarray, s: jnp.ndarray,
-                            alpha, *, use_pallas: bool,
-                            interpret: bool = False):
-    """:func:`rbc_point_assign` + per-bin query counts.
+                            alpha):
+    """Fused transform + nearest-representative assignment + per-bin
+    counts (phase 1 of the fused pipeline; fused_point.rep_assign_counts).
 
-    The grouping's counts come free from the assignment kernel's
-    sequential-grid accumulation (fused_step.rep_assign_counts_*), saving
-    the grouping's ~22 us searchsorted at the flagship shape. Returns
-    (rid (m,), counts (n_r,), G (8, 8), b_row (1, 8)).
+    The counts feed the grouping, which then skips its own count. Returns
+    (rid (m,), counts (n_r,), G (8, 8), b_row (1, 8)) — the similarity
+    factors are returned so the search phase reuses them.
     """
-    from icp_tpu.kernels.fused_step import (
-        prep_rep_assign,
-        prep_similarity,
-        rep_assign_counts_pallas,
-        rep_assign_counts_ref,
-    )
-
     G, b_row = prep_similarity(q, t, s)
     C, srow = prep_rep_assign(index.reps, alpha, G, b_row)
-    if use_pallas:
-        rid, counts = rep_assign_counts_pallas(moving8, C, srow,
-                                               interpret=interpret)
-    else:
-        rid, counts = rep_assign_counts_ref(moving8, C, srow)
+    rid, counts = rep_assign_counts(moving8, C, srow)
     return rid, counts, G, b_row
 
 
 def rbc_point_moments_grouped(index: RBCIndex, mg: jnp.ndarray,
                               qvalid: jnp.ndarray, G: jnp.ndarray,
                               b_row: jnp.ndarray, alpha, c, *,
-                              weighted: bool, use_pallas: bool,
-                              robust: str = "none", robust_delta=0.0,
-                              interpret: bool = False):
+                              weighted: bool, robust: str = "none",
+                              robust_delta=0.0):
     """Phase 2 of the fused POINT pipeline: per-bin search + weighting +
-    8x8 moment reduction over an ALREADY-grouped query table (so callers
-    that cache the grouping — warm start — can skip the sort/gathers).
+    8x8 moment reduction over an ALREADY-grouped query table.
     """
-    from icp_tpu.kernels.fused_step import (
-        bin_point_moments_pallas,
-        bin_point_moments_ref,
-        point_moments_from_P,
-    )
-
-    if use_pallas:
-        from icp_tpu.kernels.fused_step import moments_kernel_fits
-
-        use_pallas = moments_kernel_fits(
-            mg.shape[0], mg.shape[1], index.bins_centered.shape[1])
-    if use_pallas:
-        P = bin_point_moments_pallas(
-            mg, qvalid, index.reps, index.bins_centered, index.sq_b_masked,
-            G, b_row, alpha, weighted=weighted, robust=robust,
-            robust_delta=robust_delta, interpret=interpret)
-    else:
-        P = bin_point_moments_ref(
-            mg, qvalid, index.reps, index.bins_centered, index.sq_b_masked,
-            G, b_row, alpha, weighted=weighted, robust=robust,
-            robust_delta=robust_delta)
+    P = bin_point_moments(
+        mg, qvalid, index.reps, index.bins_centered, index.sq_b_masked,
+        G, b_row, alpha, weighted=weighted, robust=robust,
+        robust_delta=robust_delta)
     return point_moments_from_P(P, index.reps, c, index.moment_w)
 
 
 def rbc_min_dists_grouped(index: RBCIndex, mg: jnp.ndarray,
                           qvalid: jnp.ndarray, G: jnp.ndarray,
-                          b_row: jnp.ndarray, alpha, *, use_pallas: bool,
-                          interpret: bool = False) -> jnp.ndarray:
+                          b_row: jnp.ndarray, alpha) -> jnp.ndarray:
     """Blended squared NN distance per grouped query slot (+inf invalid) —
-    the adaptive-robust first pass (kernels.fused_step.bin_min_dists_*).
+    the adaptive-robust first pass (fused_point.bin_min_dists).
     Feed ops.moments.adaptive_robust_delta with mask = isfinite.
 
     Truncation note: the median sees only queries that HOLD a slot in the
     grouped layout — moving points dropped by query_capacity overflow are
-    excluded (the same drop the moment kernels apply to the reduction
-    itself), whereas the unfused grouped-search path's
-    ``adaptive_robust_delta`` sees every moving point. At high bin
-    occupancy the two paths can therefore derive slightly different robust
-    scales and take slightly different steps; both converge to the same
-    fixed point and tests bound the drop rate (<~1% at default capacities).
+    excluded (the same drop the moment reduction applies), whereas the
+    unfused grouped-search path's ``adaptive_robust_delta`` sees every
+    moving point. At high bin occupancy the two paths can therefore derive
+    slightly different robust scales and take slightly different steps;
+    both converge to the same fixed point and tests bound the drop rate
+    (<~1% at default capacities).
     """
-    from icp_tpu.kernels.fused_step import (
-        bin_min_dists_pallas,
-        bin_min_dists_ref,
-        moments_kernel_fits,
-    )
-
-    if use_pallas:
-        use_pallas = moments_kernel_fits(
-            mg.shape[0], mg.shape[1], index.bins_centered.shape[1])
-    if use_pallas:
-        return bin_min_dists_pallas(
-            mg, qvalid, index.reps, index.bins_centered, index.sq_b_masked,
-            G, b_row, alpha, interpret=interpret)
-    return bin_min_dists_ref(
-        mg, qvalid, index.reps, index.bins_centered, index.sq_b_masked,
-        G, b_row, alpha)
+    return bin_min_dists(mg, qvalid, index.reps, index.bins_centered,
+                         index.sq_b_masked, G, b_row, alpha)
 
 
 def _adaptive_delta_grouped(d2: jnp.ndarray, robust: str):
@@ -318,68 +205,56 @@ def _adaptive_delta_grouped(d2: jnp.ndarray, robust: str):
 def rbc_point_moments(index: RBCIndex, moving8: jnp.ndarray,
                       q: jnp.ndarray, t: jnp.ndarray, s: jnp.ndarray,
                       alpha, c, query_capacity: int, *, weighted: bool,
-                      use_pallas: bool, robust: str = "none",
-                      robust_delta=0.0, robust_adaptive: bool = False,
-                      interpret: bool = False):
-    """FULLY-fused POINT-objective iteration front half: transform + rep
-    assignment + grouping + per-bin search + weighting + moments, with
-    only the grouping sort/gather in XLA and everything else in two Pallas
-    passes (icp_tpu.kernels.fused_step; identical-math XLA twins serve CPU
-    backends). Nothing per-point ever returns to HBM after the grouping.
+                      robust: str = "none", robust_delta=0.0,
+                      robust_adaptive: bool = False):
+    """Fused POINT-objective iteration front half: transform + rep
+    assignment + grouping + per-bin search + weighting + moments. The two
+    searches run as GPU kernels on the card (XLA twins elsewhere); the
+    grouping sort and the moment tail are XLA.
 
     Args:
       index: RBC structure over the fixed set.
       moving8: (m, 8) RAW moving landmarks (the accumulated transform is
-        applied in-kernel).
+        folded into the searches).
       q, t, s: accumulated similarity.
       alpha, c: metric blend / S-matrix scaling (traced scalars).
       query_capacity: static per-bin query capacity.
       weighted: reference WEIGHTED vs REGULAR.
-      use_pallas: route through the TPU kernels (else the XLA twins).
       robust, robust_delta: optional robust M-estimator factor on the pair
-        weights (runtime.config.RobustKernel), applied in-kernel.
+        weights (runtime.config.RobustKernel).
       robust_adaptive: derive the robust scale per call from the residual
-        median via the d2-only first pass (:func:`rbc_min_dists_grouped`),
-        overriding robust_delta.
+        median via the distance-only first pass
+        (:func:`rbc_min_dists_grouped`), overriding robust_delta.
     Returns:
       (S11 (11,) in the icpSijProducts layout (c applied),
        mean_f (3,), mean_m (3,), sum_w scalar).
     """
     n_r = index.reps.shape[0]
     rid, counts, G, b_row = rbc_point_assign_counts(
-        index, moving8, q, t, s, alpha, use_pallas=use_pallas,
-        interpret=interpret)
+        index, moving8, q, t, s, alpha)
     glayout = group_rows_by_bin(rid, n_r, query_capacity, (moving8,),
-                                use_pallas=use_pallas, interpret=interpret,
                                 counts=counts)
     (mg,) = glayout.grouped
     qvalid = glayout.valid.astype(moving8.dtype)
     if robust_adaptive and robust != "none":
-        d2 = rbc_min_dists_grouped(index, mg, qvalid, G, b_row, alpha,
-                                   use_pallas=use_pallas,
-                                   interpret=interpret)
+        d2 = rbc_min_dists_grouped(index, mg, qvalid, G, b_row, alpha)
         robust_delta = _adaptive_delta_grouped(d2, robust)
     return rbc_point_moments_grouped(index, mg, qvalid, G, b_row, alpha, c,
-                                     weighted=weighted,
-                                     use_pallas=use_pallas,
-                                     robust=robust,
-                                     robust_delta=robust_delta,
-                                     interpret=interpret)
+                                     weighted=weighted, robust=robust,
+                                     robust_delta=robust_delta)
 
 
 def rbc_gn_system(index: RBCIndex, moving8: jnp.ndarray,
                   q: jnp.ndarray, t: jnp.ndarray, s: jnp.ndarray,
                   alpha, query_capacity: int, *, mode: str, weighted: bool,
-                  use_pallas: bool, robust: str = "none", robust_delta=0.0,
+                  robust: str = "none", robust_delta=0.0,
                   robust_adaptive: bool = False,
-                  gicp_eps=0.0, mnormals_rot: jnp.ndarray | None = None,
-                  v_layout: str = "sublane",
-                  interpret: bool = False) -> jnp.ndarray:
-    """FULLY-fused PLANE/GICP iteration front half: transform + rep
-    assignment + grouping + per-bin search + weighting + the whole GN
-    system build, mirroring :func:`rbc_point_moments` for the
-    normal-consuming objectives (kernels.fused_gn; identical-math XLA
-    twins serve CPU backends).
+                  gicp_eps=0.0, mnormals_rot: jnp.ndarray | None = None
+                  ) -> jnp.ndarray:
+    """Fused PLANE/GICP iteration front half: transform + rep assignment +
+    grouping + per-bin search + weighting + the whole GN system build,
+    mirroring :func:`rbc_point_moments` for the normal-consuming
+    objectives (rbc.fused_gn).
 
     Args:
       index: RBC structure built WITH normals (bins_vals12/gn_w present).
@@ -392,61 +267,34 @@ def rbc_gn_system(index: RBCIndex, moving8: jnp.ndarray,
       gicp_eps: disk-covariance thickness (gicp mode).
       mnormals_rot: (m, 3) moving normals rotated into the fixed frame
         (required for plane_sym/gicp; grouped alongside the queries).
-      v_layout: GN row-tensor layout for the moment contraction
-        ("sublane" default; "rowcat" measured a wash and "lane" is
-        experimental — see kernels.fused_gn._gn_math).
     Returns:
       V (8, 8) global GN moment matrix — feed
-      kernels.fused_gn.gn_system_from_V then icp.plane.solve_plane_system.
+      rbc.fused_gn.gn_system_from_V then icp.plane.solve_plane_system.
     """
-    from icp_tpu.kernels.fused_gn import (
-        bin_gn_moments_pallas,
-        bin_gn_moments_ref,
-        gicp_const_moment,
-        gn_kernel_fits,
-        gn_v_total,
-    )
-
     assert index.bins_vals12 is not None, \
         "rbc_gn_system needs an index built with normals"
     n_r = index.reps.shape[0]
     rid, counts, G, b_row = rbc_point_assign_counts(
-        index, moving8, q, t, s, alpha, use_pallas=use_pallas,
-        interpret=interpret)
+        index, moving8, q, t, s, alpha)
     rows = ((moving8,) if mode == "plane"
             else (moving8, mnormals_rot))
     glayout = group_rows_by_bin(rid, n_r, query_capacity, rows,
-                                use_pallas=use_pallas, interpret=interpret,
                                 counts=counts)
     mg = glayout.grouped[0]
     nm = None if mode == "plane" else glayout.grouped[1]
     qvalid = glayout.valid.astype(moving8.dtype)
 
     if robust_adaptive and robust != "none":
-        d2 = rbc_min_dists_grouped(index, mg, qvalid, G, b_row, alpha,
-                                   use_pallas=use_pallas,
-                                   interpret=interpret)
+        d2 = rbc_min_dists_grouped(index, mg, qvalid, G, b_row, alpha)
         robust_delta = _adaptive_delta_grouped(d2, robust)
 
-    if use_pallas:
-        use_pallas = gn_kernel_fits(n_r, mg.shape[1],
-                                    index.bins_vals12.shape[1], mode)
-    if use_pallas:
-        P = bin_gn_moments_pallas(
-            mg, nm, qvalid, index.reps, index.bins_vals12,
-            index.sq_b_masked, G, b_row, alpha, mode=mode,
-            weighted=weighted, robust=robust, robust_delta=robust_delta,
-            gicp_eps=gicp_eps, v_layout=v_layout, interpret=interpret)
-    else:
-        P = bin_gn_moments_ref(
-            mg, nm, qvalid, index.reps, index.bins_vals12,
-            index.sq_b_masked, G, b_row, alpha, mode=mode,
-            weighted=weighted, robust=robust, robust_delta=robust_delta,
-            gicp_eps=gicp_eps, v_layout=v_layout)
+    P = bin_gn_moments(
+        mg, nm, qvalid, index.reps, index.bins_centered, index.bins_vals12,
+        index.sq_b_masked, G, b_row, alpha, mode=mode, weighted=weighted,
+        robust=robust, robust_delta=robust_delta, gicp_eps=gicp_eps)
     if mode == "gicp":
-        # Woodbury split: the kernel emits the two data rows' moment and
-        # the z-moment; the isotropic I/2 block assembles here (tiny XLA,
-        # linear in P_z — see kernels.fused_gn.gicp_const_moment).
+        # Woodbury split: the data rows' moment plus the isotropic I/2
+        # block, linear in the z-moment (rbc.fused_gn.gicp_const_moment).
         P, P_z = P
         P = P + gicp_const_moment(P_z)
     return gn_v_total(P, index.reps, index.gn_w)
@@ -482,7 +330,7 @@ def rbc_search(index: RBCIndex, queries: jnp.ndarray, alpha,
     m = queries.shape[0]
     n_r = index.reps.shape[0]
 
-    # Phase 1: nearest representative per query — (m, n_r) MXU matmul.
+    # Phase 1: nearest representative per query — one (m, n_r) product.
     d2_qr = pairwise_sq_dists(queries, index.reps, alpha)
     query_rep = jnp.argmin(d2_qr, axis=1).astype(jnp.int32)
     d2_to_rep = jnp.min(d2_qr, axis=1)

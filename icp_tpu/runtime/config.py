@@ -88,8 +88,7 @@ class RobustKernel(enum.Enum):
       TRIMMED  1 if d <= delta else 0         (max-correspondence-distance
                                                rejection / truncated LS)
 
-    All three are elementwise on d^2 and fuse into the hot Pallas moment
-    kernel at zero measurable cost.
+    All three are elementwise on d^2 and fuse into the moment tail.
     """
 
     NONE = "none"
@@ -128,10 +127,9 @@ class ICPConfig:
       robust_adaptive: derive the robust scale per iteration from the
         masked median residual instead of ``robust_delta`` (MAD-style,
         per-kernel multiples — ops.moments.adaptive_robust_delta). The
-        median needs per-pair residuals, so this routes POINT through the
-        grouped-search pipeline instead of the fused moment kernel
-        (~25-30% slower iterations). On the sharded path the median is
-        computed by a 3-collective distributed quantile
+        median needs per-pair residuals, which the fused pipelines get from
+        an extra distance-only search pass. On the sharded path the median
+        is computed by a 3-collective distributed quantile
         (ops.moments.masked_median_sharded: local-median interval
         bracketing + one histogram psum).
       correspondence: NN search strategy.
@@ -139,27 +137,24 @@ class ICPConfig:
         default 40, include/ICP/algorithms.hpp:2440).
       bin_capacity: static per-representative database-bin capacity for the
         RBC structure. Mean occupancy is m / n_r; the default 2x mean
-        (128-lane rounded) makes overflow vanishingly rare on scan data.
+        (rounded up to a multiple of 128) makes overflow vanishingly rare
+        on scan data.
         Overflowing database points are dropped from their bin (masked),
-        mirroring the fixed-capacity idiom TPU static shapes require.
+        mirroring the fixed-capacity idiom static shapes require.
       query_capacity: static per-bin query capacity for the grouped RBC
         search. Queries overflowing their bin fall back to their nearest
         representative (a real database point) as the match. The default
         1.5x mean occupancy drops ~1% of queries on the worst measured
         scene (zero on the wall scene) with registration accuracy
-        unchanged, and the search kernel cost scales ~linearly with this
-        capacity (128 -> 96 measured -6% full iteration); raise it for
-        heavily skewed scenes.
-      use_pallas: route the hot distance/argmin ops through Pallas kernels
-        instead of plain XLA einsum/argmin. Auto-disabled when tracing for
-        the CPU backend (tests), where the XLA path is identical semantics.
+        unchanged, and the search cost scales ~linearly with this
+        capacity; raise it for heavily skewed scenes.
       estimate_scale: solve for Horn's symmetric scale s_k (the reference
         always does). Disable for rigid odometry: on frustum-sampled
         near-planar scenes the (s, t_z) pair is degenerate — a uniform
         scale about the camera center exactly mimics forward translation.
       double_precision_sums: accumulate weight sums in float64 like the
         reference's ``reduce_sum_fd`` promotion (only honored where the
-        backend supports f64; XLA:TPU computes f32 otherwise).
+        backend supports f64 and x64 is enabled; f32 otherwise).
     """
 
     m: int = 16384
@@ -170,9 +165,8 @@ class ICPConfig:
     robust_adaptive: bool = False
     correspondence: Correspondence = Correspondence.RBC
     max_iterations: int = 40
-    bin_capacity: int = 0  # 0 -> auto: 2x mean occupancy, 128-lane rounded
+    bin_capacity: int = 0  # 0 -> auto: 2x mean occupancy, 128-multiple
     query_capacity: int = 0  # 0 -> auto: 1.5x mean occupancy, 8-aligned
-    use_pallas: bool = True
     estimate_scale: bool = True
     objective: Objective = Objective.POINT
     # PLANE refinement: use the symmetric (averaged fixed+moving) normal
@@ -185,22 +179,18 @@ class ICPConfig:
     # (PCA of geometric k-NN — REQUIRED for unorganized clouds such as
     # LiDAR sweeps; auto cannot detect organization). ops.normals.
     normal_mode: str = "auto"
-    # Fully-fused POINT pipeline (kernels/fused_step.py): transform + rep
-    # assignment + per-bin search + weighting + the whole statistical tail
-    # collapse into two passes emitting per-bin 8x8 moment matrices — no
-    # per-point tensor returns to HBM after the grouping. The default hot
-    # path; disable to fall back to the grouped-search + XLA-reduction
-    # pipeline (same semantics, more HBM traffic — useful for A/B and for
-    # objectives needing per-pair data, which ignore this flag).
+    # Fused POINT pipeline (rbc/fused_point.py): transform + rep assignment
+    # + per-bin search + weighting + the whole statistical tail reduce to
+    # per-bin 8x8 moment matrices. The default hot path; disable to fall
+    # back to the grouped-search + per-pair reduction pipeline (same
+    # semantics, more device-memory traffic — useful for A/B).
     fused_point: bool = True
-    # Fully-fused PLANE/GICP pipeline (kernels/fused_gn.py): the same
-    # two-pass structure as fused_point, with per-bin search + weighting +
-    # the ENTIRE Gauss-Newton system build collapsed into (n_r, 8, 8)
-    # moment matrices (GICP's 3x3 Mahalanobis weight factors into three
-    # plane-style rows via a closed-form Cholesky — see the module
-    # docstring). Ignored for POINT/BRUTE; the adaptive-robust combination
-    # falls back to the grouped-search path (needs per-pair residuals for
-    # the median), same as fused_point.
+    # Fused PLANE/GICP pipeline (rbc/fused_gn.py): the same structure as
+    # fused_point, with per-bin search + weighting + the ENTIRE
+    # Gauss-Newton system build reduced to (n_r, 8, 8) moment matrices
+    # (GICP's 3x3 Mahalanobis weight splits into two plane-style rows plus
+    # an isotropic block — see the module docstring). Ignored for
+    # POINT/BRUTE.
     fused_gn: bool = True
 
     def __post_init__(self):
@@ -213,19 +203,18 @@ class ICPConfig:
         if self.normal_mode not in ("auto", "grid", "knn", "knn_rbc"):
             raise ValueError(f"normal_mode must be auto|grid|knn|knn_rbc, "
                              f"got {self.normal_mode!r}")
-        # Default bin capacity: 2x mean occupancy, rounded up to the
-        # 128-lane TPU tile (the DATABASE side is the lane dim of the score
-        # tensor, so sub-128 sizes just pad back to 128 in VMEM). Overflow
+        # Default bin capacity: 2x mean occupancy, rounded up to a multiple
+        # of 128 (whole candidate tiles for the per-bin search). Overflow
         # drops database points from their bin (masked).
         mean_occ = max(self.m // self.n_r, 4)
         if self.bin_capacity == 0:
             object.__setattr__(self, "bin_capacity",
                                max(((2 * mean_occ + 127) // 128) * 128, 16))
-        # Default query capacity: 1.5x mean occupancy, 8-aligned (the QUERY
-        # side is the sublane dim, so multiples of 8 tile exactly). Kernel
-        # cost is ~linear in this capacity; at 1.5x the overflow fallback
-        # hits ~1% of queries on the worst measured scene with registration
-        # accuracy unchanged (see the class docstring).
+        # Default query capacity: 1.5x mean occupancy, 8-aligned (whole
+        # query tiles for the per-bin search). Search cost is ~linear in
+        # this capacity; at 1.5x the overflow fallback hits ~1% of queries
+        # on the worst measured scene with registration accuracy unchanged
+        # (see the class docstring).
         if self.query_capacity == 0:
             object.__setattr__(self, "query_capacity",
                                max(((3 * mean_occ // 2 + 7) // 8) * 8, 16))

@@ -1,6 +1,6 @@
 """ctypes bindings for the native host runtime (native/icp_host.cpp).
 
-The reference's host layer is C++; the TPU build keeps host-side IO and the
+The reference's host layer is C++; this build keeps host-side IO and the
 verification oracle native too. The library is built on demand with the
 checked-in Makefile (g++ is in the image; pybind11 is not, hence ctypes).
 Every entry point has a numpy fallback so the framework works without a

@@ -5,7 +5,7 @@ The reference ships a bespoke dual-path profiler: ``CPUTimer``, ``GPUTimer``
 CLUtils dependency, threaded through templated ``run(GPUTimer&)`` overloads
 on every class (include/ICP/algorithms.hpp:140-163, SURVEY.md §5).
 
-The TPU equivalents here:
+The equivalents here:
   * :class:`CPUTimer` — wall-clock span timer.
   * :func:`device_time` — accurate on-device timing of a jitted callable via
     ``block_until_ready`` with warmup and min-of-N.
@@ -64,7 +64,7 @@ def device_time(fn: Callable, *args, reps: int = 10, warmup: int = 1) -> float:
 def marginal_time(fn_of_n: Callable[[int], Callable], n_hi: int, n_lo: int,
                   *args, reps: int = 5) -> float:
     """Per-unit marginal cost (ms) via workload differencing — removes the
-    constant dispatch cost (important under remote/tunneled backends)."""
+    constant dispatch cost, which dominates small workloads)."""
     t_hi = device_time(fn_of_n(n_hi), *args, reps=reps)
     t_lo = device_time(fn_of_n(n_lo), *args, reps=reps)
     return (t_hi - t_lo) / (n_hi - n_lo)

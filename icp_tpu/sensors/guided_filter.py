@@ -6,7 +6,7 @@ eps 0.005, depth scaling 1e-3 — reference src/kinect_frame_grabber.cpp:
 179-243). This is the He et al. guided filter with the guide equal to the
 input (self-guided edge-preserving smoothing).
 
-TPU-first: the box filter is two cumulative sums + shifted differences
+The box filter is two cumulative sums + shifted differences
 (integral-image form) — O(HW) independent of radius, all fused by XLA.
 """
 

@@ -2,7 +2,7 @@
 
 The reference's capture side is a native C++ loop (kinect_frame_grabber,
 src/kinect_frame_grabber.cpp) writing 640x480 float8 ``.bin`` clouds; this
-is the matching READ side for the TPU build: a native prefetch thread
+is the matching READ side: a native prefetch thread
 (native/frame_source.cpp, via ctypes) keeps a ring buffer of decoded
 frames ahead of the consumer, so the registration loop never blocks on
 disk. Falls back to synchronous numpy reads when the native library is

@@ -1,8 +1,8 @@
 """Synthetic Kinect-like RGB-D renderer.
 
 The reference ships captured `.bin` clouds (absent from the mount —
-SURVEY.md §6) and a libfreenect grabber. This module replaces both for the
-TPU build: an analytic ray-traced scene (textured back wall + spheres +
+SURVEY.md §6) and a libfreenect grabber. This module replaces both: an
+analytic ray-traced scene (textured back wall + spheres +
 floor) rendered through the reference's pinhole model from arbitrary SE(3)
 camera poses, so frame pairs and whole trajectories come with exact
 ground-truth transforms. Fully jittable; one `vmap`-free vectorized pass

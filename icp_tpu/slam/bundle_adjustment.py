@@ -17,7 +17,7 @@ complement
 then the reduced camera system is solved densely (N is keyframe-count
 small) and landmarks are back-substituted independently.
 
-TPU-first structure:
+Structure:
   * per-observation Jacobians: vmapped forward-mode autodiff (3x6, 3x3).
   * Hll / bp: segment-sums over observations grouped by landmark.
   * W-products: observations grouped by landmark with a fixed max-degree

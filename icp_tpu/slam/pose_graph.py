@@ -15,13 +15,12 @@ cost, else the trust region shrinks (lambda x10) and the next iteration
 re-linearizes at the same point. Plain GN with a fixed tiny damping is NOT
 safe on loop-closure graphs — on a 600-node circle graph with 50-node loop
 closures the first undamped step overshoots by meters and the scan diverges
-to NaN (round-3 bisect, benchmarks/exp_pg_nan.py). The accept/reject is a
-pair of jnp.where selects, so the whole optimizer stays one fused lax.scan
-with no host syncs (XLA/TPU friendly).
+to NaN. The accept/reject is a pair of jnp.where selects, so the whole
+optimizer stays one fused lax.scan with no host syncs.
 
 Two inner solvers:
   * dense 6N x 6N normal system (``optimize``) — right-sized for 10^1-10^2
-    node graphs, one MXU-backed solve;
+    node graphs, one dense solve;
   * matrix-free block-Jacobi PCG (``optimize_pcg``) — O(E) memory per Hv
     product, scales to 10^3+ nodes.
 Both have edge-sharded distributed variants (``make_sharded_optimize``,
@@ -326,7 +325,7 @@ def _finish_precond(D, lam, anchor):
 def _pcg(hvp, Minv, b, iters: int):
     """Fixed-iteration preconditioned CG for H x = -b (x0 = 0). A static
     trip count keeps the whole solve one fused lax.scan — no host syncs or
-    data-dependent control flow (TPU/XLA friendly); a residual-based early
+    data-dependent control flow; a residual-based early
     exit would buy nothing at these sizes."""
     apply_M = lambda r: jnp.einsum("nij,nj->ni", Minv, r)
     x0 = jnp.zeros_like(b)
@@ -362,7 +361,7 @@ def optimize_pcg(graph: PoseGraph, iterations: int = 10,
     Scales past the dense path's ~10^3-node limit (ROADMAP item): memory is
     O(E) per Hv product instead of O(36 N^2) for the assembled H, and each
     CG iteration is gather + batched 6x6 matvecs + scatter-add — all
-    MXU/VPU-batched with static shapes. Block-Jacobi preconditioning keeps
+    batched with static shapes. Block-Jacobi preconditioning keeps
     CG iteration counts low on chain+loop graphs. Same adaptive-lambda
     accept/reject as :func:`optimize`.
     """

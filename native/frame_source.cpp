@@ -2,7 +2,7 @@
 // kinect_frame_grabber (src/kinect_frame_grabber.cpp — C++ capture loop
 // writing 640x480 float8 .bin clouds). Here: a background prefetch thread
 // reads a directory's .bin cloud sequence into a fixed ring buffer so the
-// Python/TPU side pops frames without ever blocking on disk I/O — the
+// Python side pops frames without ever blocking on disk I/O — the
 // host-runtime piece of the odometry pipeline that stays native.
 //
 // C ABI (ctypes; see icp_tpu/sensors/stream.py):

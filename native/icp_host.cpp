@@ -1,9 +1,9 @@
 // icp_host — native host-side runtime support for icp_tpu.
 //
 // The reference's host layer is C++ (CLUtils env/buffer management, Eigen
-// solves, binary cloud IO; SURVEY.md §2.5). The TPU build keeps the compute
-// path in XLA/Pallas, and provides the host-side runtime pieces natively
-// here:
+// solves, binary cloud IO; SURVEY.md §2.5). This build keeps the compute
+// path in XLA and Pallas kernels on the GPU, and provides the host-side
+// runtime pieces natively here:
 //   * high-throughput cloud codec: mmap'd reads and O_DIRECT-friendly
 //     writes of the reference .bin format (307200 x 8 f32), with validation
 //     and batched sequence loading for the odometry/dataset pipeline

@@ -11,7 +11,7 @@ argv: port pid variant n_local_devices n_dp n_mp [with_pg]
   with_pg: "1" additionally runs the edge-sharded pose-graph LM-PCG on the
     deterministic ring fixture (slam.pose_graph.demo_ring_graph) over the
     SAME global mesh and prints a RESULT_PG line — the driver dry run's
-    multi-process section consumes it (VERDICT r4 item 5).
+    multi-process section consumes it.
 """
 
 import os

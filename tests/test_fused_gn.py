@@ -1,12 +1,13 @@
-"""Fused PLANE/GICP pipeline (kernels/fused_gn.py) parity tests.
+"""Fused PLANE/GICP pipeline (rbc/fused_gn.py) parity tests.
 
 Same three-layer evidence as the fused POINT tests (test_fused_moments):
   1. step-level: `icp_step(fused_gn=True)` == the grouped-search path, at
      a random accumulated state, for PLANE / symmetric PLANE / GICP;
-  2. kernel-level: interpret-mode Pallas == the plain-XLA twin;
-  3. algebra-level: the closed-form Cholesky row decomposition reproduces
-     inv(M) exactly, and the hoisted translation tensor matches the
-     direct per-bin congruence.
+  2. kernel-level: the interpreted GPU kernels == the plain-XLA twins, and
+     the per-bin moments == the GN rows built pair by pair;
+  3. algebra-level: the Woodbury row decomposition reproduces inv(M)
+     exactly, and the hoisted translation tensor matches the direct
+     per-bin congruence.
 """
 
 import dataclasses
@@ -60,7 +61,7 @@ def test_fused_gn_step_matches_unfused(rng, objective, symmetric, weighting):
     base = dict(m=moving.shape[0], n_r=idx.reps.shape[0],
                 query_capacity=64, objective=objective,
                 plane_symmetric=symmetric, weighting=weighting,
-                normal_mode="knn", use_pallas=False, estimate_scale=False)
+                normal_mode="knn", estimate_scale=False)
     s_fused = icp_step(state, moving, idx, PARAMS,
                        ICPConfig(**base, fused_gn=True),
                        moving_normals=mnormals)
@@ -75,59 +76,89 @@ def test_fused_gn_step_matches_unfused(rng, objective, symmetric, weighting):
 
 @pytest.mark.parametrize("mode", ["plane", "plane_sym", "gicp"])
 def test_gn_kernel_matches_ref_twin(rng, mode):
-    """Interpret-mode Pallas == plain-XLA twin (race-detection analog)."""
+    """Interpret-mode Pallas kernels == plain-XLA twins."""
+    from icp_tpu.kernels import kernel_mode
+
     idx, moving = _setup(rng)
     state = _random_state(rng)
     mn = normals_for(moving, "knn") if mode != "plane" else None
     kwargs = dict(mode=mode, weighted=True, gicp_eps=1e-3,
                   mnormals_rot=mn)
-    V_k = rbc_gn_system(idx, moving, state.q, state.t, state.s,
-                        jnp.float32(ALPHA), 64, use_pallas=True,
-                        interpret=True, **kwargs)
+    with kernel_mode("interpret"):
+        V_k = rbc_gn_system(idx, moving, state.q, state.t, state.s,
+                            jnp.float32(ALPHA), 64, **kwargs)
     V_r = rbc_gn_system(idx, moving, state.q, state.t, state.s,
-                        jnp.float32(ALPHA), 64, use_pallas=False, **kwargs)
+                        jnp.float32(ALPHA), 64, **kwargs)
     tol = 1e-4 * max(float(jnp.max(jnp.abs(V_r))), 1.0)
     np.testing.assert_allclose(np.asarray(V_k), np.asarray(V_r), atol=tol)
 
 
 @pytest.mark.parametrize("mode", ["plane", "plane_sym", "gicp"])
-def test_gn_v_layouts_agree(rng, mode):
-    """Every alternative moment layout — "lane" (components on sublanes,
-    rows x queries on lanes) and "rowcat" (rows concatenated along the
-    query axis, one dot_general) — computes the same per-bin P as the
-    original "sublane" layout, reduction order aside."""
-    from icp_tpu.kernels.fused_gn import bin_gn_moments_ref
+def test_gn_moments_match_pair_rows(rng, mode):
+    """bin_gn_moments == the GN rows built pair by pair in float64 numpy
+    from each grouped query's nearest bin slot."""
+    from icp_tpu.ops.distance import metric_weights
+    from icp_tpu.rbc.fused_gn import bin_gn_moments
     from icp_tpu.rbc.grouping import group_rows_by_bin
-    from icp_tpu.rbc.search import rbc_point_assign
+    from icp_tpu.rbc.search import rbc_point_assign_counts
 
     idx, moving = _setup(rng)
     state = _random_state(rng)
     mn = normals_for(moving, "knn")
-    rid, G, b_row = rbc_point_assign(idx, moving, state.q, state.t,
-                                     state.s, jnp.float32(ALPHA),
-                                     use_pallas=False)
-    gl = group_rows_by_bin(rid, idx.reps.shape[0], 64, (moving, mn))
-    args = (gl.grouped[0], None if mode == "plane" else gl.grouped[1],
-            gl.valid.astype(moving.dtype), idx.reps, idx.bins_vals12,
-            idx.sq_b_masked, G, b_row, jnp.float32(ALPHA))
-    kw = dict(mode=mode, weighted=True, gicp_eps=1e-3)
-    P_sub = bin_gn_moments_ref(*args, v_layout="sublane", **kw)
-    if mode == "gicp":
-        P_sub = jnp.stack(P_sub)  # (2, n_r, 8, 8): data rows + z-moment
-    tol = 1e-4 * max(float(jnp.max(jnp.abs(P_sub))), 1.0)
-    for layout in ("lane", "rowcat"):
-        P_alt = bin_gn_moments_ref(*args, v_layout=layout, **kw)
-        if mode == "gicp":
-            P_alt = jnp.stack(P_alt)
-        np.testing.assert_allclose(np.asarray(P_alt), np.asarray(P_sub),
-                                   atol=tol, err_msg=layout)
+    rid, counts, G, b_row = rbc_point_assign_counts(
+        idx, moving, state.q, state.t, state.s, jnp.float32(ALPHA))
+    gl = group_rows_by_bin(rid, idx.reps.shape[0], 64, (moving, mn),
+                           counts=counts)
+    mg, nm = gl.grouped
+    qvalid = gl.valid.astype(moving.dtype)
+    eps = 1e-3
+    P = bin_gn_moments(mg, None if mode == "plane" else nm, qvalid,
+                       idx.reps, idx.bins_centered, idx.bins_vals12,
+                       idx.sq_b_masked, G, b_row, jnp.float32(ALPHA),
+                       mode=mode, weighted=False, gicp_eps=eps)
+
+    f64 = lambda x: np.asarray(x, np.float64)  # noqa: E731
+    mg, nm, G, b_row = f64(mg), f64(nm), f64(G), f64(b_row)
+    reps, bins_c = f64(idx.reps), f64(idx.bins_centered)
+    vals, sq_b = f64(idx.bins_vals12), f64(idx.sq_b_masked)
+    qc = mg @ G + b_row - reps[:, None, :]
+    w8 = f64(metric_weights(ALPHA))
+    score = sq_b[:, None, :] - 2.0 * np.einsum("bqk,bck->bqc", qc * w8,
+                                                 bins_c)
+    slot = np.argmin(score, axis=-1)
+    w = (np.asarray(gl.valid) & (np.abs(mg[..., :3]).sum(-1) > 0)
+         & np.isfinite(score.min(-1))).astype(np.float64)
+    matched = np.take_along_axis(vals, slot[..., None], axis=1)
+    m, d, nf = qc[..., :3], qc[..., :3] - matched[..., :3], matched[..., 8:11]
+
+    def moment(u, wr):
+        v = np.concatenate([u, np.cross(m, u), (d * u).sum(-1)[..., None],
+                            np.ones_like(u[..., :1])], axis=-1)
+        return np.einsum("bqi,bq,bqj->bij", v, wr, v)
+
+    if mode == "plane":
+        want = [moment(nf, w)]
+    elif mode == "plane_sym":
+        want = [moment(nf + nm, w)]
+    else:
+        e = 1.0 - eps
+        c = (nf * nm).sum(-1)
+        gs, gt = e / (4 * (2 - e * (1 + c))), e / (4 * (2 - e * (1 - c)))
+        z = np.concatenate([m, d, np.ones_like(m[..., :1]),
+                            np.zeros_like(m[..., :1])], axis=-1)
+        want = [moment(nf + nm, w * gs) + moment(nf - nm, w * gt),
+                np.einsum("bqi,bq,bqj->bij", z, w, z)]
+    got = P if mode == "gicp" else [P]
+    for g, wnt in zip(got, want):
+        tol = 1e-4 * max(np.abs(wnt).max(), 1.0)
+        np.testing.assert_allclose(np.asarray(g), wnt, atol=tol)
 
 
 def test_gicp_woodbury_rows_reproduce_inverse(rng):
     """I/2 + e/(4 L_s) s s^T + e/(4 L_t) t t^T == inv(M) — the exact
     sqrt-free identity that lets GICP's 3x3 Mahalanobis weight run as
     three constant-direction rows (g = 1/2) plus two data rows (see
-    kernels/fused_gn.py docstring). Validity domain: unit or zero
+    rbc/fused_gn.py docstring). Validity domain: unit or zero
     normals (s and t are then orthogonal eigen-directions of the rank-2
     update), including the parallel / anti-parallel extremes where the
     smallest eigenvalue hits the 2 eps floor."""
@@ -158,8 +189,8 @@ def test_gicp_woodbury_rows_reproduce_inverse(rng):
 def test_gicp_const_moment_matches_row_sum(rng):
     """gicp_const_moment(P_z) == the explicit constant-direction row sum
     sum_i (w_i/2) B_i B_i^T — the linearity that lets GICP's isotropic
-    I/2 term ride a single stack-free z-moment through the kernel."""
-    from icp_tpu.kernels.fused_gn import gicp_const_moment
+    I/2 term ride a single z-moment through the per-bin reduction."""
+    from icp_tpu.rbc.fused_gn import gicp_const_moment
 
     n_b, cq = 5, 16
     m = rng.uniform(-40, 40, (n_b, cq, 3)).astype(np.float32)
@@ -186,7 +217,7 @@ def test_gicp_const_moment_matches_row_sum(rng):
 def test_gn_translation_tensor_matches_direct(rng):
     """gn_v_total via the hoisted W_t matvec == the direct per-bin
     congruence at realistic rep magnitudes."""
-    from icp_tpu.kernels.fused_gn import gn_translation_tensor, gn_v_total
+    from icp_tpu.rbc.fused_gn import gn_translation_tensor, gn_v_total
 
     reps = jnp.asarray(make_cloud8(rng, 16))
     P = jnp.asarray(rng.normal(size=(16, 8, 8)).astype(np.float32) * 20.0)

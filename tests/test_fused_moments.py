@@ -1,10 +1,11 @@
-"""Fully-fused POINT pipeline (kernels/fused_step.py) parity tests.
+"""Fused POINT pipeline (rbc/fused_point.py) parity tests.
 
 Three layers of evidence, mirroring SURVEY.md §4's golden strategy:
   1. step-level: `icp_step(fused_point=True)` == `icp_step(fused_point=False)`
-     at a random accumulated state (transform folded in-kernel vs explicit);
-  2. kernel-level: the Pallas kernels in interpret mode == their plain-XLA
-     twins (the production CPU path);
+     at a random accumulated state (transform folded into the search vs
+     explicit);
+  2. kernel-level: the GPU kernels in the Pallas interpreter == their
+     plain-XLA twins (the production CPU path);
   3. end-to-end: one fused solve recovers a known transform.
 """
 
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 import pytest
 
 from icp_tpu.icp.state import identity_state
+from icp_tpu.kernels import kernel_mode
 from icp_tpu.icp.step import icp_step
 from icp_tpu.rbc.construct import rbc_construct
 from icp_tpu.rbc.search import rbc_point_moments
@@ -48,7 +50,7 @@ def test_fused_step_matches_unfused(rng, weighting):
     idx, moving = _setup(rng)
     state = _random_state(rng)
     base = dict(m=moving.shape[0], n_r=idx.reps.shape[0],
-                query_capacity=64, weighting=weighting, use_pallas=False)
+                query_capacity=64, weighting=weighting)
     s_fused = icp_step(state, moving, idx, PARAMS,
                        ICPConfig(**base, fused_point=True))
     s_ref = icp_step(state, moving, idx, PARAMS,
@@ -61,16 +63,16 @@ def test_fused_step_matches_unfused(rng, weighting):
 
 @pytest.mark.parametrize("weighted", [True, False])
 def test_pallas_kernels_match_ref_twins(rng, weighted):
-    """Interpret-mode Pallas == plain-XLA twins (race-detection analog)."""
+    """Interpret-mode Pallas kernels == plain-XLA twins."""
     idx, moving = _setup(rng)
     state = _random_state(rng)
-    out_k = rbc_point_moments(idx, moving, state.q, state.t, state.s,
-                              jnp.float32(ALPHA), jnp.float32(C), 64,
-                              weighted=weighted, use_pallas=True,
-                              interpret=True)
+    with kernel_mode("interpret"):
+        out_k = rbc_point_moments(idx, moving, state.q, state.t, state.s,
+                                  jnp.float32(ALPHA), jnp.float32(C), 64,
+                                  weighted=weighted)
     out_r = rbc_point_moments(idx, moving, state.q, state.t, state.s,
                               jnp.float32(ALPHA), jnp.float32(C), 64,
-                              weighted=weighted, use_pallas=False)
+                              weighted=weighted)
     for a, b, name in zip(out_k, out_r, ("S11", "mean_f", "mean_m", "W")):
         a, b = np.asarray(a), np.asarray(b)
         tol = 1e-4 * max(np.abs(b).max(), 1.0)
@@ -79,7 +81,8 @@ def test_pallas_kernels_match_ref_twins(rng, weighted):
 
 def test_fused_invalid_points_dropped(rng):
     """Zero-geometry (invalid sensor) moving points must not contribute:
-    kernels/icp_kernels.cl:50-51's deferred discard, done in-kernel."""
+    kernels/icp_kernels.cl:50-51's deferred discard, done in the search
+    front."""
     idx, moving = _setup(rng)
     state = _random_state(rng)
     # Zero out a block of points; the moments must match computing on the
@@ -88,8 +91,7 @@ def test_fused_invalid_points_dropped(rng):
     # vs the unfused step which implements the discard independently.
     moving = moving.at[100:200].set(0.0)
     base = dict(m=moving.shape[0], n_r=idx.reps.shape[0],
-                query_capacity=64, weighting=Weighting.WEIGHTED,
-                use_pallas=False)
+                query_capacity=64, weighting=Weighting.WEIGHTED)
     s_fused = icp_step(state, moving, idx, PARAMS,
                        ICPConfig(**base, fused_point=True))
     s_ref = icp_step(state, moving, idx, PARAMS,
@@ -104,7 +106,7 @@ def test_hoisted_translation_tensor_matches_direct(rng):
     """point_moment_partials via the hoisted W_t matvec == the direct
     per-term algebra, at realistic rep magnitudes (the coefficients carry
     r_d*r_e ~ 4e6 products — this pins the matmul path's f32 fidelity)."""
-    from icp_tpu.kernels.fused_step import (
+    from icp_tpu.rbc.fused_point import (
         point_moment_partials,
         point_translation_tensor,
     )
@@ -135,10 +137,10 @@ def test_fused_transform_recovery(rng):
     idx = rbc_construct(jnp.asarray(db), jnp.asarray(reps),
                         jnp.float32(ALPHA), 64)
     ident = identity_state()
-    S, mf, mm, W = rbc_point_moments(
-        idx, jnp.asarray(queries), ident.q, ident.t, ident.s,
-        jnp.float32(ALPHA), jnp.float32(C), 64, weighted=True,
-        use_pallas=True, interpret=True)
+    with kernel_mode("interpret"):
+        S, mf, mm, W = rbc_point_moments(
+            idx, jnp.asarray(queries), ident.q, ident.t, ident.s,
+            jnp.float32(ALPHA), jnp.float32(C), 64, weighted=True)
     qk, tk, sk = solve_step_transform(S, mf, mm, mode="power",
                                       estimate_scale=False)
     err0 = np.linalg.norm(t_true)

@@ -114,13 +114,12 @@ def test_knn_rbc_invalid_points(rng):
 
 
 def test_knn_moments_kernel_parity(rng):
-    """Interpret-mode parity: the fused kNN-moments Pallas kernel must
-    match its XLA twin (identical math by construction) on covariances
-    and neighbor counts, including underfull and invalid-slot bins."""
+    """The per-bin kNN covariances (bisection on the k-th distance value,
+    masked products) == a float64 numpy kNN covariance per query,
+    including underfull and NaN-encoded invalid candidates."""
     import jax.numpy as jnp
 
-    from icp_tpu.kernels.knn_moments import (bin_knn_moments_pallas,
-                                             bin_knn_moments_ref)
+    from icp_tpu.ops.normals import bin_knn_moments
 
     n_r, cq, cb, k = 8, 16, 128, 12
     reps = rng.normal(size=(n_r, 3)).astype(np.float32) * 100
@@ -135,39 +134,37 @@ def test_knn_moments_kernel_parity(rng):
         n_valid = int(rng.integers(4, cb))
         bvalid[r, n_valid:] = False
     bins[2, 1] = np.nan
-    args = tuple(map(jnp.asarray, (qp, bins, reps, bvalid)))
-    C_ref, cnt_ref = bin_knn_moments_ref(*args, k=k)
-    C_pl, cnt_pl = bin_knn_moments_pallas(*args, k=k, interpret=True)
-    np.testing.assert_array_equal(np.asarray(cnt_pl), np.asarray(cnt_ref))
-    for c_pl, c_ref in zip(C_pl, C_ref):
-        np.testing.assert_allclose(np.asarray(c_pl), np.asarray(c_ref),
-                                   rtol=1e-5, atol=1e-2)
-        assert np.all(np.isfinite(np.asarray(c_pl)))
-    # Counts ~= k where the bin has >= k valid candidates (bisection can
-    # include a tie-few extra, never fewer).
-    nv = (bvalid & np.isfinite(bins).all(-1)).sum(-1)
-    full = nv >= k
-    assert np.all(np.asarray(cnt_ref)[full] >= k)
-    assert np.all(np.asarray(cnt_ref)[full] <= k + 2)
-    assert np.all(np.asarray(cnt_ref)[~full]
-                  == np.maximum(nv[~full], 1)[:, None])
+    comps = bin_knn_moments(*map(jnp.asarray, (qp, bins, reps, bvalid)),
+                            k=k, chunk=4)
+    got = np.stack([np.asarray(c) for c in comps], -1)  # (n_r, cq, 6)
+    assert np.all(np.isfinite(got))
+    ok = bvalid & np.isfinite(bins).all(-1)
+    for r in range(n_r):
+        cand = bins[r][ok[r]].astype(np.float64)
+        for i in range(cq):
+            d = ((cand - qp[r, i]) ** 2).sum(-1)
+            nb = cand[np.argsort(d)[:k]]
+            C = (nb - nb.mean(0)).T @ (nb - nb.mean(0))
+            want = C[[0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
+            np.testing.assert_allclose(got[r, i], want, rtol=1e-3,
+                                       atol=1e-2 * np.abs(C).max())
 
 
 def test_rep_top2_kernel_parity(rng):
-    """Interpret-mode parity of the VMEM top-2 assignment kernel against
-    a numpy reference: first/second nearest rep ids + per-choice counts."""
-    from icp_tpu.kernels.knn_moments import rep_top2_counts_pallas
+    """The nearest-representatives strip of knn_normals_rbc against a
+    numpy reference: first/second nearest rep ids + exact per-choice
+    counts, with a strip-padding tail (m not a multiple of the strip)."""
+    from icp_tpu.ops.normals import _nearest_reps
 
-    m, n_r = 2048, 64
+    m, n_r = 2100, 64
     p = rng.normal(size=(m, 3)).astype(np.float32) * 100
     reps = p[rng.choice(m, n_r, replace=False)]
-    i1, i2, counts = rep_top2_counts_pallas(
-        jnp.asarray(p), jnp.asarray(reps), block_m=512, interpret=True)
+    ids, counts = _nearest_reps(jnp.asarray(p), jnp.asarray(reps), 2)
     d = ((p ** 2).sum(1)[:, None] - 2 * p @ reps.T
          + (reps ** 2).sum(1)[None, :])
     order = np.argsort(d, axis=1)
-    np.testing.assert_array_equal(np.asarray(i1), order[:, 0])
-    np.testing.assert_array_equal(np.asarray(i2), order[:, 1])
+    np.testing.assert_array_equal(np.asarray(ids[:, 0]), order[:, 0])
+    np.testing.assert_array_equal(np.asarray(ids[:, 1]), order[:, 1])
     np.testing.assert_array_equal(
         np.asarray(counts[0]), np.bincount(order[:, 0], minlength=n_r))
     np.testing.assert_array_equal(

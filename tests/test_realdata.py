@@ -20,7 +20,6 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-pytest.importorskip("PIL")
 
 from icp_tpu import ICPConfig, ICPParams, Objective, register
 from icp_tpu.icp.quaternion import qangle_deg, qconj, qmul

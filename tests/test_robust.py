@@ -130,8 +130,7 @@ def test_robust_fused_matches_unfused(rng):
         t=jnp.asarray((rng.normal(size=3) * 10).astype(np.float32)))
     params = ICPParams(alpha=150.0, robust_delta=60.0).as_f32()
     base = dict(m=512, n_r=16, query_capacity=64,
-                weighting=Weighting.REGULAR, robust=RobustKernel.TUKEY,
-                use_pallas=False)
+                weighting=Weighting.REGULAR, robust=RobustKernel.TUKEY)
     s_fused = icp_step(state, moving, idx, params,
                        ICPConfig(**base, fused_point=True))
     s_ref = icp_step(state, moving, idx, params,
@@ -144,7 +143,9 @@ def test_robust_fused_matches_unfused(rng):
 
 @pytest.mark.parametrize("robust", ["huber", "tukey", "trimmed"])
 def test_robust_pallas_matches_ref_twin(rng, robust):
-    """Interpret-mode Pallas moment kernel == XLA twin with robust active."""
+    """Interpret-mode Pallas kernels == XLA twins with robust active."""
+    from icp_tpu.kernels import kernel_mode
+
     db = make_cloud8(rng, 512)
     reps = db[rng.choice(512, 16, replace=False)]
     idx = rbc_construct(jnp.asarray(db), jnp.asarray(reps),
@@ -152,12 +153,13 @@ def test_robust_pallas_matches_ref_twin(rng, robust):
     moving = jnp.asarray(make_cloud8(rng, 512))
     st = identity_state()
     kw = dict(weighted=True, robust=robust, robust_delta=jnp.float32(60.0))
-    out_k = rbc_point_moments(idx, moving, st.q, st.t, st.s,
-                              jnp.float32(150.0), jnp.float32(1e-6), 64,
-                              use_pallas=True, interpret=True, **kw)
+    with kernel_mode("interpret"):
+        out_k = rbc_point_moments(idx, moving, st.q, st.t, st.s,
+                                  jnp.float32(150.0), jnp.float32(1e-6), 64,
+                                  **kw)
     out_r = rbc_point_moments(idx, moving, st.q, st.t, st.s,
                               jnp.float32(150.0), jnp.float32(1e-6), 64,
-                              use_pallas=False, **kw)
+                              **kw)
     for a, b, name in zip(out_k, out_r, ("S11", "mean_f", "mean_m", "W")):
         a, b = np.asarray(a), np.asarray(b)
         tol = 1e-4 * max(np.abs(b).max(), 1.0)
@@ -218,7 +220,7 @@ def test_robust_adaptive_fused_matches_grouped(rng):
     params = ICPParams(alpha=150.0, robust_delta=1e9).as_f32()
     base = dict(m=512, n_r=16, query_capacity=64,
                 weighting=Weighting.REGULAR, robust=RobustKernel.TUKEY,
-                robust_adaptive=True, use_pallas=False)
+                robust_adaptive=True)
     s_fused = icp_step(state, moving, idx, params,
                        ICPConfig(**base, fused_point=True))
     s_ref = icp_step(state, moving, idx, params,
@@ -230,15 +232,14 @@ def test_robust_adaptive_fused_matches_grouped(rng):
 
 
 def test_min_dists_pallas_matches_ref_twin(rng):
-    """Interpret-mode d2-only kernel == XLA twin (incl. the +inf invalid
-    encoding), and the derived adaptive scale matches."""
-    from icp_tpu.kernels.fused_step import (
-        bin_min_dists_pallas,
-        bin_min_dists_ref,
-    )
+    """The distance-only pass with the interpreted search kernel == the
+    XLA twin (incl. the +inf invalid encoding), and the derived adaptive
+    scale matches."""
+    from icp_tpu.kernels import kernel_mode
     from icp_tpu.ops.moments import adaptive_robust_delta
+    from icp_tpu.rbc.fused_point import bin_min_dists
     from icp_tpu.rbc.grouping import group_rows_by_bin
-    from icp_tpu.rbc.search import rbc_point_assign
+    from icp_tpu.rbc.search import rbc_point_assign_counts
 
     db = make_cloud8(rng, 512)
     reps = db[rng.choice(512, 16, replace=False)]
@@ -248,14 +249,15 @@ def test_min_dists_pallas_matches_ref_twin(rng):
     moving[:5] = 0.0  # invalid originals -> +inf slots
     moving = jnp.asarray(moving)
     st = identity_state()
-    rid, G, b_row = rbc_point_assign(idx, moving, st.q, st.t, st.s,
-                                     jnp.float32(150.0), use_pallas=False)
-    gl = group_rows_by_bin(rid, 16, 64, (moving,))
+    rid, counts, G, b_row = rbc_point_assign_counts(
+        idx, moving, st.q, st.t, st.s, jnp.float32(150.0))
+    gl = group_rows_by_bin(rid, 16, 64, (moving,), counts=counts)
     qvalid = gl.valid.astype(moving.dtype)
     args = (gl.grouped[0], qvalid, idx.reps, idx.bins_centered,
             idx.sq_b_masked, G, b_row, jnp.float32(150.0))
-    d_k = np.asarray(bin_min_dists_pallas(*args, interpret=True))
-    d_r = np.asarray(bin_min_dists_ref(*args))
+    with kernel_mode("interpret"):
+        d_k = np.asarray(bin_min_dists(*args))
+    d_r = np.asarray(bin_min_dists(*args))
     assert np.array_equal(np.isfinite(d_k), np.isfinite(d_r))
     assert np.isinf(d_k).sum() >= 5  # the zeroed originals are invalid
     fin = np.isfinite(d_r)

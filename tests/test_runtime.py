@@ -74,9 +74,9 @@ def test_config_validation():
 
 
 def test_config_capacity_defaults():
-    """Pin the auto-capacity policy: bin = 2x mean occupancy rounded to the
-    128-lane tile (database side = lane dim), query = 1.5x mean occupancy,
-    8-aligned (query side = sublane dim). Measured trade-off documented in
+    """Pin the auto-capacity policy: bin = 2x mean occupancy rounded up to
+    a multiple of 128 (whole candidate tiles), query = 1.5x mean
+    occupancy, 8-aligned (whole query tiles). Trade-off documented in
     ICPConfig; a silent change here moves both perf and the overflow rate."""
     from icp_tpu import ICPConfig
 

@@ -1,6 +1,6 @@
 """Multi-chip sharding tests on an 8-virtual-device CPU mesh — the
 capability the reference lacks entirely (single OpenCL device, no mocks;
-SURVEY.md §4 'TPU build implication')."""
+SURVEY.md §4)."""
 
 import numpy as np
 import jax
